@@ -1,0 +1,405 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of the flagship on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases; any failure exits nonzero, and nothing is printed as a result:
+
+1. the card: its name and power limit from nvidia-smi;
+2. build every kernel from ``distantspeech_tpu_torch/csrc`` with nvcc for
+   sm_90a into ``build/kernels/``; print the build time and ptxas's
+   register and spill report;
+3. kernel vs plain on the card, float32, B=8 x 8 mics x 1 s, the same
+   t_chunk on both sides (T=125 -> t_chunk 25: 3 warm chunks, then the
+   Bennett path and one re-anchor): both kernels in 'ldl' and 'rank1' mode
+   with the guard off (< 1e-3 of max|y|) and the benched config (< 2e-2,
+   the vad_guard decision-flip tolerance: the guard thresholds a raw ratio,
+   so an ulp of difference can flip a lane's hold/update decision); and the
+   benched kernel against the port's own per-frame scan path (float64,
+   B=2) with the same two gates as bench.py;
+4. the main path at full size, through the user entry point:
+   ``enhance_process(x, ArrayGeometry.linear(8, 0.032), (90, 0),
+   EnhanceConfig(), backend="mega", inv_mode="rank1")`` on B=64 x 8 mics x
+   4 s of a synthesised broadside scene, with launch counts reset just
+   before and read just after: finite, right shape, the kernel launched,
+   output SNR above input SNR; then the same for ``backend="fused"``;
+5. kernel vs plain at the main path's shapes (T=500 -> t_chunk 50: 2 warm
+   chunks, 8 steady ones, re-anchors at other frames than at the gate
+   size, and a 65-block lane grid): the main path's own outputs against
+   the plain version with the benched config (< 2e-2), and both kernels
+   again with the guard off (< 1e-3);
+6. CUDA-event timing at full size of both kernels (rank1 and ldl), of the
+   'fused' wrapper and its stages, and of each kernel's plain version
+   (median of 3 calls after a warm-up);
+7. the ``kernels`` JSON line, the card line, and the final JSON line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+FS = 16000
+H100_FP32_FLOPS = 67e12  # NVIDIA H100 SXM data sheet, float32 outside the tensor cores
+H100_HBM_BYTES = 3.35e12  # bytes/s
+TIGHT, FLIP = 1e-3, 2e-2  # kernel gates (bench.py's two gates)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def scene(B, M, S, seed, snr_db=0.0):
+    """Broadside scene: a speech-like burst (white noise under a 1.3 Hz
+    on/off envelope, so MCRA sees speech come and go) identical on every
+    mic, plus independent white noise per mic at ``snr_db`` (over the whole
+    utterance).  Returns (x [B, M, S] float32, envelope [B, S])."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(S) / FS
+    env = (np.sin(2 * np.pi * 1.3 * t + rng.uniform(0, 2 * np.pi, (B, 1))) > 0).astype(np.float64)
+    tgt = env * rng.standard_normal((B, S))
+    noise = rng.standard_normal((B, M, S)) * np.sqrt(np.mean(tgt**2) / 10 ** (snr_db / 10))
+    return (tgt[:, None, :] + noise).astype(np.float32), env
+
+
+def segment_snr_db(y, env, delay, start=FS, margin=512):
+    """SNR from target-on and target-off segments: 10 log10((P_on - P_off) /
+    P_off), mean over utterances, where P_on / P_off is the mean power of y
+    where the target envelope (delayed by ``delay`` samples) is on / off for
+    ``margin`` samples either side, after ``start`` (MCRA's 2L = 1.04 s of
+    forced adaptation).  A time-varying postfilter gain is part of the
+    output here, not an error, as it would be in a projection SNR."""
+    on = np.zeros_like(env)
+    on[:, delay:] = env[:, : env.shape[1] - delay]
+
+    def eroded(mask):
+        c = np.concatenate([np.zeros((mask.shape[0], 1)), np.cumsum(mask, axis=1)], axis=1)
+        w = 2 * margin + 1
+        full = np.zeros(mask.shape, dtype=bool)
+        full[:, margin : mask.shape[1] - margin] = (c[:, w:] - c[:, :-w]) == w
+        full[:, :start] = False
+        return full
+
+    on_m, off_m = eroded(on), eroded(1.0 - on)
+    snr = []
+    for b in range(y.shape[0]):
+        p_on, p_off = np.mean(y[b, on_m[b]] ** 2), np.mean(y[b, off_m[b]] ** 2)
+        snr.append(10 * np.log10(max(p_on - p_off, 1e-30) / p_off))
+    return float(np.mean(snr))
+
+
+def rel_err(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max()), float((a - b).abs().max())
+
+
+def check(ok, msg):
+    if not ok:
+        raise RuntimeError(f"chip_smoke: FAILED: {msg}")
+    print(f"ok: {msg}", flush=True)
+
+
+def lane_ops(M):
+    """Arithmetic operations per lane-frame of the recursion, counted by
+    running the plain version (the kernels unroll the same code) on one
+    lane and tallying every elementwise op it executes.  Returns
+    {'open_ldl', 'open_rank1', 'closed'}: a frame whose covariance gate is
+    open in the warmup (LDL) or steady (Bennett) phase, and one whose gate
+    is closed (the kernels then skip the update and the solve)."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig
+    from distantspeech_tpu_torch.ops import cuda_enhance, cuda_mvdr
+
+    names = {
+        "add", "sub", "mul", "div", "where", "minimum", "maximum", "clamp", "exp", "log", "lt", "le", "gt",
+        "__add__", "__radd__", "__sub__", "__rsub__", "__mul__", "__rmul__", "__truediv__", "__rtruediv__",
+        "__neg__", "__gt__", "__lt__", "__le__", "__and__", "__pow__",
+    }
+
+    class Count(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            self.n += getattr(func, "__name__", "") in names
+            return func(*args, **(kwargs or {}))
+
+    def counted(fn, *args, **kw):
+        mode = Count()
+        with mode:
+            fn(*args, **kw)
+        return mode.n
+
+    cfg = EnhanceConfig()
+    rng = np.random.default_rng(0)
+    # F = 3 lanes (first, interior, last bin): every op is elementwise over
+    # the lanes, so one counted call is one op per lane.  The last frame is
+    # past MCRA's 2L forcing and inside a steady rank-1 chunk.
+    T, tc = 2 * cfg.mvdr.mcra_L + 8, 64
+    Z = torch.as_tensor(rng.standard_normal((T, M, 2, 1, 3)))
+    Sf = torch.as_tensor(rng.random((T, 1, 3)))
+    planes = torch.as_tensor(rng.standard_normal((M, 2, 3)))
+    frame = {}
+    for inv_mode in ("ldl", "rank1"):
+        run = lambda n: cuda_enhance.enhance_lanes_plain(Z[:n], Sf[:n], planes, cfg, tc, inv_mode)
+        frame[inv_mode] = counted(run, T) - counted(run, T - 1)
+    # the plain version computes the update for every lane and selects by the
+    # gate; the kernels branch, so split the update out of the frame count
+    z = [torch.ones(1, 3, dtype=torch.float64) for _ in range(M)]
+    R = lambda: [[z[0].clone() for _ in range(M)] for _ in range(M)]
+    update = {}
+    for gate in (None, z[0] > 0):
+        update["ldl", gate is None] = counted(
+            cuda_mvdr._mvdr_update_ldl, z, z, gate, z, z, R(), R(), list(z), list(z), M, 0.9998, 1e-6, 1e-5)
+        update["rank1", gate is None] = counted(
+            cuda_mvdr._mvdr_update_rank1, z, z, gate, z, z, R(), R(), list(z), list(z), M, 0.9998, Ld=z[0])
+    closed = frame["ldl"] - update["ldl", False]
+    return {"open_ldl": closed + update["ldl", True],
+            "open_rank1": frame["rank1"] - update["rank1", False] + update["rank1", True],
+            "closed": closed}
+
+
+def open_lane_frames(x, cfg, t_chunk):
+    """Count the lane-frames whose covariance gate opens, split into the
+    warmup (LDL) and steady (Bennett) phases of inv_mode='rank1', from the
+    port's MCRA on this input (the gate depends on MCRA alone)."""
+    import torch
+
+    from distantspeech_tpu_torch.noise.mcra import mcra_run
+    from distantspeech_tpu_torch.ops.cuda_enhance import _warm_chunks
+    from distantspeech_tpu_torch.transform import analysis
+
+    X0 = analysis(x[:, 0], cfg.stft)  # [B, T, F]
+    _, p, sr = mcra_run(cfg.mvdr.mcra, (X0.abs() ** 2).transpose(0, 1).contiguous(), return_sr=True)
+    gate = p < cfg.mvdr.p_vad
+    if cfg.mvdr.vad_guard:
+        gate = gate & (sr <= cfg.mvdr.mcra.delta_s)
+    warm = _warm_chunks(t_chunk) * t_chunk
+    return int(gate[:warm].sum()), int(gate[warm:].sum()), int(gate.numel())
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on a card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distantspeech_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # full float32 analysis/synthesis products
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}", flush=True)
+
+    # ---- 2. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    libs = _build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(libs)}", flush=True)
+    for name, lib in libs.items():
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+
+    return smoke(torch.device("cuda"), card, B=64, seconds=4)
+
+
+def smoke(dev, card: str, B: int, seconds: int) -> int:
+    """Phases 3-7 on ``dev`` with the main path at B utterances x 8 mics x
+    ``seconds``."""
+    import torch
+
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+    from distantspeech_tpu_torch.array.steering import steering_vector
+    from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, enhance_process
+    from distantspeech_tpu_torch.beamform.mvdr import MvdrConfig
+    from distantspeech_tpu_torch.ops import cuda_enhance as ce
+    from distantspeech_tpu_torch.runtime.profiling import benchmark, cuda_seconds
+
+    tag = f"[{card}]"
+    # ---- 3. kernel vs plain ----------------------------------------------------
+    M = 8
+    geom = ArrayGeometry.linear(M, 0.032)
+    look = (90.0, 0.0)
+    bench_cfg = EnhanceConfig()
+    nog_cfg = EnhanceConfig(mvdr=MvdrConfig(**{**bench_cfg.mvdr.__dict__, "vad_guard": False}))
+    steer = steering_vector(geom, np.asarray(look) / 180.0 * np.pi, bench_cfg.stft.n_fft).astype(np.complex64)
+    xg = torch.as_tensor(scene(8, M, FS, seed=1)[0], device=dev)
+    T_g = FS // bench_cfg.stft.hop
+    tc_g = ce._pick_t_chunk(T_g) or 64
+    print(f"gate input: B=8 M={M} T={T_g} t_chunk={tc_g} warm_chunks={ce._warm_chunks(tc_g)}", flush=True)
+    outs = {}
+    plain_gate_s = None
+    for cname, cfg in (("guard off", nog_cfg), ("benched", bench_cfg)):
+        for mode in ("ldl", "rank1"):
+            if cname == "benched" and mode == "ldl":
+                continue
+            t1 = time.perf_counter()
+            want = ce.fused_enhance_plain(xg, steer, cfg, tc_g, mode)
+            torch.cuda.synchronize()
+            if plain_gate_s is None:
+                plain_gate_s = time.perf_counter() - t1
+            tol = FLIP if cname == "benched" else TIGHT
+            for kname, fn in (("fused_enhance", ce.fused_enhance), ("fused_enhance_full", ce.fused_enhance_full)):
+                got = fn(xg, steer, cfg, tc_g, mode)
+                torch.cuda.synchronize()
+                check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"{kname} {mode} {cname}: finite {tuple(got.shape)}")
+                rel, mx = rel_err(got, want)
+                outs[(kname, mode, cname)] = got
+                check(rel < tol, f"{kname} {mode} {cname} vs plain: rel {rel:.3e} (max abs {mx:.3e}) < {tol:g}")
+    print(f"plain version at the gate size (B=8, 1 s, ldl): {plain_gate_s * 1e3:.1f} ms wall {tag}", flush=True)
+    for kname in ("fused_enhance", "fused_enhance_full"):
+        rel, _ = rel_err(outs[(kname, "rank1", "guard off")], outs[(kname, "ldl", "guard off")])
+        check(rel > 0, f"{kname} rank1 differs from ldl (rel {rel:.3e}): the Bennett path ran")
+
+    x2 = xg[:2].contiguous()
+    for cname, cfg, tol in (("guard off", nog_cfg, TIGHT), ("benched", bench_cfg, FLIP)):
+        ref = enhance_process(x2.double(), geom, look, cfg, backend="scan", device=dev).float()
+        got = ce.fused_enhance_full(x2, steer, cfg, tc_g, "rank1")
+        rel, _ = rel_err(got, ref)
+        check(rel < tol, f"fused_enhance_full rank1 {cname} vs the scan path (B=2): rel {rel:.3e} < {tol:g}")
+
+    # ---- 4. the main path at full size -------------------------------------------
+    S = seconds * FS
+    xs, env = scene(B, M, S, seed=2)
+    x = torch.as_tensor(xs, device=dev)
+    snr_in = segment_snr_db(xs[:, 0], env, 0)
+    launches = {}
+    outputs = {}
+    for backend, kname in (("mega", "fused_enhance_full"), ("fused", "fused_enhance")):
+        for k in ce.LAUNCHES:
+            ce.LAUNCHES[k] = 0
+        y = enhance_process(x, geom, look, EnhanceConfig(), backend=backend, inv_mode="rank1")
+        torch.cuda.synchronize()
+        launches[kname] = ce.LAUNCHES[kname]
+        check(ce.LAUNCHES[kname] > 0, f"backend={backend} launched {kname} {ce.LAUNCHES[kname]} time(s): {dict(ce.LAUNCHES)}")
+        check(tuple(y.shape) == (B, S) and bool(torch.isfinite(y).all()), f"backend={backend}: finite output {tuple(y.shape)}")
+        snr_out = segment_snr_db(y.cpu().numpy(), env, bench_cfg.stft.hop)  # the STFT delays by one hop
+        check(snr_out > snr_in, f"backend={backend}: output SNR {snr_out:.2f} dB > input SNR {snr_in:.2f} dB (mic 0)")
+        outputs[backend] = y
+    rel, _ = rel_err(outputs["fused"], outputs["mega"])
+    print(f"fused vs mega at full size, benched config: rel {rel:.3e}", flush=True)
+
+    # ---- 5. kernel vs plain at the main path's shapes ------------------------------
+    # T=500 -> t_chunk 50: 2 warm chunks, then 8 steady chunks with re-anchors,
+    # and a 65-block lane grid; the benched config checks the main path's own
+    # output, and a guard-off run holds both kernels to the tight gate
+    cfg = bench_cfg
+    steer = torch.as_tensor(steer, device=dev)  # on the card: no host copy inside the timed calls
+    T = S // cfg.stft.hop
+    tc = ce._pick_t_chunk(T) or 64
+    print(f"main-path input: B={B} M={M} T={T} t_chunk={tc} warm_chunks={ce._warm_chunks(tc)}", flush=True)
+    xt, planes, _ = ce._prepare(x, steer, cfg, tc, "rank1")
+    Z = ce._analysis_planes(xt, cfg.stft)
+    Sf = ce._smoothed_power(Z, cfg.mvdr.mcra.b).contiguous()
+    main_err = {}
+    for cname, c, tol in (("benched", bench_cfg, FLIP), ("guard off", nog_cfg, TIGHT)):
+        want_full = ce.fused_enhance_plain(x, steer, c, tc, "rank1")
+        want_lanes = ce.enhance_lanes_plain(Z, Sf, planes, c, tc, "rank1")
+        if cname == "benched":
+            pairs = (("fused_enhance_full", outputs["mega"], want_full), ("fused wrapper", outputs["fused"], want_full))
+        else:
+            pairs = (("fused_enhance_full", ce.fused_enhance_full(x, steer, c, tc, "rank1"), want_full),)
+        pairs += (("fused_enhance", ce.enhance_lanes(Z, Sf, planes, c, tc, "rank1"), want_lanes),)
+        torch.cuda.synchronize()
+        for kname, got, want in pairs:
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"{kname} rank1 {cname}, full size: finite {tuple(got.shape)}")
+            rel, mx = rel_err(got, want)
+            main_err[(kname, cname)] = mx
+            check(rel < tol, f"{kname} rank1 {cname} vs plain at full size: rel {rel:.3e} (max abs {mx:.3e}) < {tol:g}")
+
+    # ---- 6. timing -------------------------------------------------------------
+    audio_s = B * S / FS
+    times = {}
+    for mode in ("rank1", "ldl"):
+        per = benchmark(ce.fused_enhance_full, x, steer, cfg, tc, mode)["per_call_s"]
+        times[("fused_enhance_full", mode)] = per
+        print(f"fused_enhance_full {mode}: {per * 1e3:.3f} ms/call, {audio_s / per:.0f} audio-s/s (B={B}, M={M}, {S // FS} s) {tag}", flush=True)
+    per = benchmark(ce.fused_enhance, x, steer, cfg, tc, "rank1")["per_call_s"]
+    print(f"fused_enhance wrapper rank1 (matmuls + kernel): {per * 1e3:.3f} ms/call, {audio_s / per:.0f} audio-s/s {tag}", flush=True)
+    for mode in ("rank1", "ldl"):
+        per = benchmark(ce.enhance_lanes, Z, Sf, planes, cfg, tc, mode)["per_call_s"]
+        times[("fused_enhance", mode)] = per
+        print(f"fused_enhance kernel {mode}: {per * 1e3:.3f} ms/call, {audio_s / per:.0f} audio-s/s {tag}", flush=True)
+    Y = ce.enhance_lanes(Z, Sf, planes, cfg, tc, "rank1")
+    stages = (
+        ("analysis products + smoothing", lambda: ce._smoothed_power(ce._analysis_planes(xt, cfg.stft), cfg.mvdr.mcra.b).contiguous()),
+        ("synthesis product + overlap-add", lambda: ce._synthesis_planes(Y, cfg.stft)),
+    )
+    for name, fn in stages:
+        per = benchmark(fn)["per_call_s"]
+        print(f"fused_enhance wrapper stage, {name}: {per * 1e3:.3f} ms/call {tag}", flush=True)
+    # the plain versions ran once above at this size (their warm-up); median of 3 more
+    plain = {
+        "fused_enhance_full": ("fused_enhance_plain", ce.fused_enhance_plain, (x, steer, cfg, tc, "rank1")),
+        "fused_enhance": ("enhance_lanes_plain", ce.enhance_lanes_plain, (Z, Sf, planes, cfg, tc, "rank1")),
+    }
+    plain_s = {}
+    for kname, (pname, fn, args) in plain.items():
+        runs = [cuda_seconds(fn, *args) for _ in range(3)]
+        plain_s[kname] = float(np.median(runs))
+        print(f"plain {pname} rank1 (full size, median of {[round(r * 1e3, 1) for r in runs]} ms): "
+              f"{plain_s[kname] * 1e3:.1f} ms {tag}", flush=True)
+
+    # ---- bounds: bytes moved once, and the operations this input needs -------------
+    ops = lane_ops(M)
+    n_warm, n_steady, n_lanes = open_lane_frames(x, cfg, tc)
+    lane_total = (n_warm * ops["open_ldl"] + n_steady * ops["open_rank1"]
+                  + (n_lanes - n_warm - n_steady) * ops["closed"])
+    N, hop = cfg.stft.n_fft, cfg.stft.hop
+    # a windowed real N-point transform needs ~2.5 N log2 N operations as a
+    # real FFT, plus N window products: one per mic and frame for the
+    # analysis, one per frame for the synthesis, which also scales and
+    # overlap-adds hop samples
+    fft_ops = 2.5 * N * np.log2(N) + N
+    dft_ops = B * M * T * fft_ops + B * T * (fft_ops + 2 * hop)
+    gemm_ops = 2 * B * M * T * N * N + 2 * B * T * N * N  # the dense products the JAX package and K4 do
+    print(f"lane ops per lane-frame (M={M}): {ops}; open gates: {n_warm} warm + {n_steady} steady "
+          f"of {n_lanes} lane-frames", flush=True)
+
+    def bound(nbytes, nops):
+        tb, to = nbytes / H100_HBM_BYTES, nops / H100_FP32_FLOPS
+        return max(tb, to) * 1e3, ("bytes" if tb > to else "operations")
+
+    full_bytes = 4 * (x.numel() + B * S)
+    lanes_bytes = 4 * (Z.numel() + Sf.numel() + planes.numel() + 2 * T * B * cfg.stft.half_bin)
+    b_full, by_full = bound(full_bytes, dft_ops + lane_total)
+    b_lanes, by_lanes = bound(lanes_bytes, lane_total)
+    print(f"bound fused_enhance_full: {b_full:.4f} ms by {by_full} ({full_bytes} B, {dft_ops + lane_total:.4g} ops "
+          f"with the DFTs as real FFTs; with them as dense products, {gemm_ops + lane_total:.4g} ops, "
+          f"{bound(full_bytes, gemm_ops + lane_total)[0]:.4f} ms)")
+    print(f"bound fused_enhance kernel: {b_lanes:.4f} ms by {by_lanes} ({lanes_bytes} B, {lane_total:.4g} ops)")
+
+    kernels = [
+        {"name": "fused_enhance_full", "route": "cuda", "source": "distantspeech_tpu_torch/csrc/enhance.cu",
+         "replaces": "distantspeech_tpu/ops/pallas_enhance.py:391", "launches": launches["fused_enhance_full"],
+         "max_abs_err": main_err[("fused_enhance_full", "benched")],
+         "ms": times[("fused_enhance_full", "rank1")] * 1e3, "plain_ms": plain_s["fused_enhance_full"] * 1e3,
+         "bound_ms": b_full, "bound_by": by_full, "library_ms": None},
+        {"name": "fused_enhance", "route": "cuda", "source": "distantspeech_tpu_torch/csrc/enhance.cu",
+         "replaces": "distantspeech_tpu/ops/pallas_enhance.py:123", "launches": launches["fused_enhance"],
+         "max_abs_err": main_err[("fused_enhance", "benched")],
+         "ms": times[("fused_enhance", "rank1")] * 1e3, "plain_ms": plain_s["fused_enhance"] * 1e3,
+         "bound_ms": b_lanes, "bound_by": by_lanes, "library_ms": None},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,85 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface under ``build/kernels/`` at the
+repository root, keyed by a hash of every source in ``csrc/`` and of the
+flags; the wrappers load it with ``ctypes``.  Nothing is compiled when a
+module is imported: the first kernel call builds, and ``build()`` builds
+every source at once, one ``nvcc`` process per source, all started
+together.  A failed compile raises with nvcc's output.  ptxas's register and
+spill report for each library is kept beside it as ``<name>-<hash>.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (put the CUDA toolkit's bin on PATH or set CUDA_HOME)")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Dict[str, Path]:
+    """Compile every ``csrc/*.cu`` not yet built for the current sources;
+    return {name: library path}."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    key = _source_hash()
+    out = {src.stem: BUILD_DIR / f"{src.stem}-{key}.so" for src in sorted(CSRC.glob("*.cu"))}
+    todo = {name: lib for name, lib in out.items() if not lib.exists()}
+    if not todo:
+        return out
+    nvcc = _nvcc()
+    procs = {}
+    for name, lib in todo.items():
+        tmp = lib.with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        todo[name].with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (exit {proc.returncode}) ---\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu``, building it if needed."""
+    if name not in _loaded:
+        _loaded[name] = ctypes.CDLL(str(build()[name]))
+    return _loaded[name]

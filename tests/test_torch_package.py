@@ -1,0 +1,84 @@
+"""The port's boundary: no JAX and nothing of the JAX package in it, the card
+as the default device with no quiet CPU fallback, and the timing helpers
+refusing to time without a card."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from distantspeech_tpu_torch import resolve_device
+from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, enhance_process
+from distantspeech_tpu_torch.beamform.mvdr import mvdr_process
+from distantspeech_tpu_torch.ops import cuda_enhance as ce
+from distantspeech_tpu_torch.runtime import profiling
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "distantspeech_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "distantspeech_tpu")
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    for mod in _imported_modules(path):
+        assert mod.split(".")[0] not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys, pkgutil, importlib, distantspeech_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'distantspeech_tpu_torch.'): importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'distantspeech_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_the_card_is_the_default_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((8, 1280), np.float32)
+    geom = ArrayGeometry.linear(8, 0.032)
+    for call in (
+        lambda: resolve_device(),
+        lambda: resolve_device("cuda"),
+        lambda: enhance_process(x, geom),
+        lambda: enhance_process(x[None], geom, backend="mega"),
+        lambda: mvdr_process(x, geom),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_tensors_leave_launches_at_zero():
+    ce.LAUNCHES.update(fused_enhance=0, fused_enhance_full=0)
+    x = np.random.default_rng(0).standard_normal((1, 2, 128 * 6)).astype(np.float32)
+    geom = ArrayGeometry.linear(2, 0.032)
+    for backend in ("scan", "fused", "mega"):
+        y = enhance_process(x, geom, cfg=EnhanceConfig(), backend=backend, device="cpu")
+        assert y.shape == (1, 128 * 6) and bool(torch.isfinite(y).all())
+    assert ce.LAUNCHES == {"fused_enhance": 0, "fused_enhance_full": 0}
+
+
+def test_timing_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        profiling.benchmark(lambda: None)
+    per, retries = profiling.slope_per_iter(lambda n: 0.5 + 0.01 * n)
+    assert retries == 0 and abs(per - 0.01) < 1e-12
+    with pytest.raises(profiling.TimingError):
+        profiling.slope_per_iter(lambda n: 1.0 - 0.01 * n, retries=1)
