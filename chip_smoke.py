@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the flagship on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port on one CUDA card and check it.
 
     python3 chip_smoke.py
 
@@ -31,11 +31,27 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
 6. CUDA-event timing at full size of both kernels (rank1 and ldl), of the
    'fused' wrapper and its stages, and of each kernel's plain version
    (median of 3 calls after a warm-up);
-7. the ``kernels`` JSON line, the card line, and the final JSON line.
+7. kernel K1 (``fused_mvdr_scan``, ``csrc/mvdr.cu``): both variants against
+   the plain version at B=8 x 8 mics x 1 s with the same gate, p and
+   lambda_d fed to both, guard off and benched (< 1e-4 of max|Y|); the
+   ``pallas`` path at full size through ``enhance_process(x,
+   ArrayGeometry.linear(8, 0.032), (90, 0), EnhanceConfig(),
+   backend="pallas")`` on B=64 x 8 x 4 s (one K1 launch, finite, output
+   SNR above mic 0's), and the gain-free variant through ``fused_mvdr_scan``
+   itself; both held to the plain version again at that size; timings;
+8. kernel K5 (``fused_tdgsc``, ``csrc/flms.cu``): core, ``vad_guard`` and
+   ``postfilter`` against the plain version at B=8 x 4 mics x 1 s (< 1e-3
+   of max|out|, < 2e-2 with the guard); the time-domain GSC at full size
+   through ``tdgsc_process(x, ArrayGeometry.linear(4, 0.032), (pi/2, 0),
+   TdGscConfig(n_mics=4[, postfilter=True]), backend="fused")`` on B=128 x
+   4 x 4 s (one K5 launch each, finite, output SNR above mic 0's), held to
+   the plain version again at that size; timings;
+9. the ``kernels`` JSON line, the card line, and the final JSON line.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -48,6 +64,7 @@ FS = 16000
 H100_FP32_FLOPS = 67e12  # NVIDIA H100 SXM data sheet, float32 outside the tensor cores
 H100_HBM_BYTES = 3.35e12  # bytes/s
 TIGHT, FLIP = 1e-3, 2e-2  # kernel gates (bench.py's two gates)
+K1_GATE = 1e-4  # K1 and its plain version see the same gate: no decision can flip
 
 
 def card_line() -> str:
@@ -108,6 +125,41 @@ def check(ok, msg):
     print(f"ok: {msg}", flush=True)
 
 
+OP_NAMES = {
+    "add", "sub", "mul", "div", "where", "minimum", "maximum", "clamp", "exp", "log", "lt", "le", "gt", "sqrt",
+    "__add__", "__radd__", "__sub__", "__rsub__", "__mul__", "__rmul__", "__truediv__", "__rtruediv__",
+    "__neg__", "__gt__", "__lt__", "__le__", "__and__", "__or__", "__pow__", "__rpow__",
+}
+REDUCTIONS = {"sum", "amax"}
+
+
+def counted(fn, *args, per_element=False, **kw):
+    """Run ``fn`` and count the elementwise torch operations it executes:
+    one per call, or (``per_element``) one per output element, with a
+    reduction counted once per input element."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class Count(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = getattr(func, "__name__", "")
+            if name in OP_NAMES:
+                self.n += out.numel() if per_element and isinstance(out, torch.Tensor) else 1
+            elif per_element and name in REDUCTIONS:
+                self.n += args[0].numel()
+            return out
+
+    mode = Count()
+    with mode:
+        fn(*args, **kw)
+    return mode.n
+
+
 def lane_ops(M):
     """Arithmetic operations per lane-frame of the recursion, counted by
     running the plain version (the kernels unroll the same code) on one
@@ -116,31 +168,9 @@ def lane_ops(M):
     open in the warmup (LDL) or steady (Bennett) phase, and one whose gate
     is closed (the kernels then skip the update and the solve)."""
     import torch
-    from torch.overrides import TorchFunctionMode
 
     from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig
     from distantspeech_tpu_torch.ops import cuda_enhance, cuda_mvdr
-
-    names = {
-        "add", "sub", "mul", "div", "where", "minimum", "maximum", "clamp", "exp", "log", "lt", "le", "gt",
-        "__add__", "__radd__", "__sub__", "__rsub__", "__mul__", "__rmul__", "__truediv__", "__rtruediv__",
-        "__neg__", "__gt__", "__lt__", "__le__", "__and__", "__pow__",
-    }
-
-    class Count(TorchFunctionMode):
-        def __init__(self):
-            super().__init__()
-            self.n = 0
-
-        def __torch_function__(self, func, types, args=(), kwargs=None):
-            self.n += getattr(func, "__name__", "") in names
-            return func(*args, **(kwargs or {}))
-
-    def counted(fn, *args, **kw):
-        mode = Count()
-        with mode:
-            fn(*args, **kw)
-        return mode.n
 
     cfg = EnhanceConfig()
     rng = np.random.default_rng(0)
@@ -213,12 +243,38 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
-    return smoke(torch.device("cuda"), card, B=64, seconds=4)
+    dev = torch.device("cuda")
+    kernels = smoke(dev, card, B=64, seconds=4)
+    kernels += smoke_k1(dev, card, B=64, seconds=4)
+    kernels += smoke_k5(dev, card, B=128, seconds=4)
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
 
 
-def smoke(dev, card: str, B: int, seconds: int) -> int:
-    """Phases 3-7 on ``dev`` with the main path at B utterances x 8 mics x
-    ``seconds``."""
+def bound(nbytes, nops):
+    """The least time the card could take: (ms, 'bytes' or 'operations')."""
+    tb, to = nbytes / H100_HBM_BYTES, float(nops) / H100_FP32_FLOPS
+    return max(tb, to) * 1e3, ("bytes" if tb > to else "operations")
+
+
+def timed_once(fn, *args):
+    """One call on the card: (result, device ms from CUDA events)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def smoke(dev, card: str, B: int, seconds: int) -> list:
+    """Phases 3-6 on ``dev`` with the main path at B utterances x 8 mics x
+    ``seconds``; returns the two flagship kernels' records."""
     import torch
 
     from distantspeech_tpu_torch.array.geometry import ArrayGeometry
@@ -369,10 +425,6 @@ def smoke(dev, card: str, B: int, seconds: int) -> int:
     print(f"lane ops per lane-frame (M={M}): {ops}; open gates: {n_warm} warm + {n_steady} steady "
           f"of {n_lanes} lane-frames", flush=True)
 
-    def bound(nbytes, nops):
-        tb, to = nbytes / H100_HBM_BYTES, nops / H100_FP32_FLOPS
-        return max(tb, to) * 1e3, ("bytes" if tb > to else "operations")
-
     full_bytes = 4 * (x.numel() + B * S)
     lanes_bytes = 4 * (Z.numel() + Sf.numel() + planes.numel() + 2 * T * B * cfg.stft.half_bin)
     b_full, by_full = bound(full_bytes, dft_ops + lane_total)
@@ -382,7 +434,7 @@ def smoke(dev, card: str, B: int, seconds: int) -> int:
           f"{bound(full_bytes, gemm_ops + lane_total)[0]:.4f} ms)")
     print(f"bound fused_enhance kernel: {b_lanes:.4f} ms by {by_lanes} ({lanes_bytes} B, {lane_total:.4g} ops)")
 
-    kernels = [
+    return [
         {"name": "fused_enhance_full", "route": "cuda", "source": "distantspeech_tpu_torch/csrc/enhance.cu",
          "replaces": "distantspeech_tpu/ops/pallas_enhance.py:391", "launches": launches["fused_enhance_full"],
          "max_abs_err": main_err[("fused_enhance_full", "benched")],
@@ -394,11 +446,271 @@ def smoke(dev, card: str, B: int, seconds: int) -> int:
          "ms": times[("fused_enhance", "rank1")] * 1e3, "plain_ms": plain_s["fused_enhance"] * 1e3,
          "bound_ms": b_lanes, "bound_by": by_lanes, "library_ms": None},
     ]
-    print(json.dumps({"kernels": kernels}))
-    print(card_line())
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
-    return 0
+
+
+def k1_lane_ops(M, gain: bool):
+    """Operations per lane-frame of K1, counted like ``lane_ops`` on its
+    plain version: {'open', 'closed'} (the kernel skips the update and the
+    solve where the gate is closed; the plain version selects)."""
+    import torch
+
+    from distantspeech_tpu_torch.ops import cuda_mvdr
+
+    rng = np.random.default_rng(0)
+    T = 3
+    Z = torch.as_tensor(rng.standard_normal((T, 1, 3, M)) + 1j * rng.standard_normal((T, 1, 3, M)))
+    gate = torch.ones((T, 1, 3))
+    steer = torch.as_tensor(np.exp(1j * rng.uniform(0, 6, (3, M))))
+    pl = torch.full((T, 1, 3), 0.5)
+    run = lambda n: cuda_mvdr.fused_mvdr_scan_plain(Z[:n], gate[:n], steer, 0.9998, 1e-6, 1e-5,
+                                                    *((pl[:n], pl[:n]) if gain else (None, None)))
+    frame = counted(run, T) - counted(run, T - 1)
+    z = [torch.ones(1, 3, dtype=torch.float64) for _ in range(M)]
+    R = lambda: [[z[0].clone() for _ in range(M)] for _ in range(M)]
+    upd = {g is None: counted(cuda_mvdr._mvdr_update_ldl, z, z, g, z, z, R(), R(), list(z), list(z), M, 0.9998, 1e-6, 1e-5)
+           for g in (None, z[0] > 0)}
+    closed = frame - upd[False]
+    return {"open": closed + upd[True], "closed": closed}
+
+
+def smoke_k1(dev, card: str, B: int, seconds: int) -> list:
+    """Phase 7: kernel K1 at the gate size and on the ``pallas`` path."""
+    import torch
+
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+    from distantspeech_tpu_torch.array.steering import steering_vector
+    from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, enhance_process
+    from distantspeech_tpu_torch.beamform.mvdr import MvdrConfig
+    from distantspeech_tpu_torch.noise.mcra import mcra_run
+    from distantspeech_tpu_torch.ops import _build
+    from distantspeech_tpu_torch.ops import cuda_mvdr as cm
+    from distantspeech_tpu_torch.runtime.profiling import benchmark
+    from distantspeech_tpu_torch.transform import analysis
+
+    tag = f"[{card}]"
+    M = 8
+    geom = ArrayGeometry.linear(M, 0.032)
+    look = (90.0, 0.0)
+    bench_cfg = EnhanceConfig()
+    nog_cfg = EnhanceConfig(mvdr=MvdrConfig(**{**bench_cfg.mvdr.__dict__, "vad_guard": False}))
+    steer = torch.as_tensor(steering_vector(geom, np.asarray(look) / 180.0 * np.pi, bench_cfg.stft.n_fft)
+                            .astype(np.complex64), device=dev)
+
+    def k1_inputs(x, cfg):
+        """What ``enhance_scan_pallas`` hands K1: spectra, gate, p, lambda_d."""
+        Zt = torch.movedim(torch.movedim(analysis(x, cfg.stft), -3, -1), -3, 0).contiguous()
+        lam, p, sr = mcra_run(cfg.mvdr.mcra, Zt[..., 0].abs() ** 2, return_sr=True)
+        gate = p < cfg.mvdr.p_vad
+        if cfg.mvdr.vad_guard:
+            gate = gate & (sr <= cfg.mvdr.mcra.delta_s)
+        return Zt, gate.float(), p, lam
+
+    def k1_args(cfg, gain, Zt, gate, p, lam):
+        mv = cfg.mvdr
+        return (Zt, gate, steer, mv.alpha_v, mv.diag, mv.rel_diag, p if gain else None, lam if gain else None,
+                cfg.alpha_xi, cfg.gmin)
+
+    def y_rel(got, want):
+        return rel_err(torch.view_as_real(got), torch.view_as_real(want))
+
+    # ---- gate size: both variants, guard off and benched, same gate on both sides
+    xg = torch.as_tensor(scene(8, M, FS, seed=1)[0], device=dev)
+    for cname, cfg in (("guard off", nog_cfg), ("benched", bench_cfg)):
+        ins = k1_inputs(xg, cfg)
+        for gain in (False, True):
+            args = k1_args(cfg, gain, *ins)
+            got = cm.fused_mvdr_scan(*args)
+            want = cm.fused_mvdr_scan_plain(*args)
+            torch.cuda.synchronize()
+            rel, mx = y_rel(got, want)
+            check(bool(torch.isfinite(torch.view_as_real(got)).all()), f"fused_mvdr_scan gain={gain} {cname}: finite")
+            check(rel < K1_GATE, f"fused_mvdr_scan gain={gain} {cname} vs plain (B=8, 1 s): rel {rel:.3e} "
+                                 f"(max abs {mx:.3e}) < {K1_GATE:g}")
+
+    # ---- why csrc/mvdr.cu is built with -fmad=false: the same source with
+    # fused multiply-adds, benched config, against the same plain output
+    lib = _build.BUILD_DIR / "mvdr-fmad.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(_build.CSRC / "mvdr.cu")]
+    subprocess.run(cmd, capture_output=True, text=True, check=True, timeout=300)
+    args = k1_args(bench_cfg, True, *k1_inputs(xg, bench_cfg))
+    built = _build._loaded.pop("mvdr", None)
+    _build._loaded["mvdr"] = ctypes.CDLL(str(lib))
+    got = cm.fused_mvdr_scan(*args)
+    torch.cuda.synchronize()
+    _build._loaded["mvdr"] = built if built is not None else _build.load("mvdr")
+    rel, _ = y_rel(got, cm.fused_mvdr_scan_plain(*args))
+    print(f"fused_mvdr_scan built with fused multiply-adds, benched (B=8, 1 s): rel {rel:.3e} to the plain version", flush=True)
+
+    # ---- the pallas path at full size, through the user entry points
+    S = seconds * FS
+    xs, env = scene(B, M, S, seed=2)
+    x = torch.as_tensor(xs, device=dev)
+    snr_in = segment_snr_db(xs[:, 0], env, 0)
+    cm.LAUNCHES["fused_mvdr_scan"] = 0
+    y = enhance_process(x, geom, look, bench_cfg, backend="pallas")
+    torch.cuda.synchronize()
+    launches_gain = cm.LAUNCHES["fused_mvdr_scan"]
+    check(launches_gain == 1, f"backend=pallas launched fused_mvdr_scan {launches_gain} time(s)")
+    check(tuple(y.shape) == (B, S) and bool(torch.isfinite(y).all()), f"backend=pallas: finite output {tuple(y.shape)}")
+    snr_out = segment_snr_db(y.cpu().numpy(), env, bench_cfg.stft.hop)
+    check(snr_out > snr_in, f"backend=pallas: output SNR {snr_out:.2f} dB > input SNR {snr_in:.2f} dB (mic 0)")
+    ins = k1_inputs(x, bench_cfg)
+    Zt = ins[0]
+    T, _, F, _ = Zt.shape
+    print(f"K1 main-path input: T={T} B={B} F={F} M={M}", flush=True)
+    cm.LAUNCHES["fused_mvdr_scan"] = 0
+    y_nogain = cm.fused_mvdr_scan(*k1_args(bench_cfg, False, *ins))
+    torch.cuda.synchronize()
+    launches_nogain = cm.LAUNCHES["fused_mvdr_scan"]
+    check(launches_nogain == 1, f"fused_mvdr_scan (no gain) launched {launches_nogain} time(s)")
+
+    # ---- both variants against the plain version at full size (the plain
+    # call, timed once, is also the plain time); then the kernels' times
+    results, plain_ms, err, times = {}, {}, {}, {}
+    for gain in (True, False):
+        args = k1_args(bench_cfg, gain, *ins)
+        got = cm.fused_mvdr_scan(*args) if gain else y_nogain
+        want, plain_ms[gain] = timed_once(cm.fused_mvdr_scan_plain, *args)
+        rel, err[gain] = y_rel(got, want)
+        check(bool(torch.isfinite(torch.view_as_real(got)).all()), f"fused_mvdr_scan gain={gain}, full size: finite")
+        check(rel < K1_GATE, f"fused_mvdr_scan gain={gain} benched vs plain at full size: rel {rel:.3e} "
+                             f"(max abs {err[gain]:.3e}) < {K1_GATE:g}")
+        times[gain] = benchmark(cm.fused_mvdr_scan, *args)["per_call_s"] * 1e3
+        print(f"fused_mvdr_scan gain={gain}: {times[gain]:.3f} ms/call (B={B}, M={M}, {seconds} s); "
+              f"plain {plain_ms[gain]:.1f} ms {tag}", flush=True)
+    # each call runs the MCRA pre-scan's 500-frame loop on the host: few iterations
+    t_path = benchmark(enhance_process, x, geom, look, bench_cfg, "pallas", iters=4, warmup=1)["per_call_s"]
+    print(f"backend=pallas end to end: {t_path * 1e3:.3f} ms/call, {B * S / FS / t_path:.0f} audio-s/s {tag}", flush=True)
+
+    # ---- bounds: bytes moved once, operations of this run's gate
+    ops = {g: k1_lane_ops(M, g) for g in (True, False)}
+    n_open = int(ins[1].sum())
+    n_lanes = ins[1].numel()
+    recs = []
+    for gain, name in ((True, "fused_mvdr_scan"), (False, "fused_mvdr_scan (no gain)")):
+        nbytes = Zt.numel() * 8 + n_lanes * 4 * (3 if gain else 1) + steer.numel() * 8 + n_lanes * 8
+        nops = n_open * ops[gain]["open"] + (n_lanes - n_open) * ops[gain]["closed"]
+        b, by = bound(nbytes, nops)
+        print(f"bound {name}: {b:.4f} ms by {by} ({nbytes} B, {nops:.4g} ops; {ops[gain]} per lane-frame, "
+              f"{n_open} of {n_lanes} lane-frames open)", flush=True)
+        recs.append({"name": name, "route": "cuda", "source": "distantspeech_tpu_torch/csrc/mvdr.cu",
+                     "replaces": "distantspeech_tpu/ops/pallas_mvdr.py:" + ("373" if gain else "346"),
+                     "launches": launches_gain if gain else launches_nogain, "max_abs_err": err[gain],
+                     "ms": times[gain], "plain_ms": plain_ms[gain], "bound_ms": b, "bound_by": by, "library_ms": None})
+    return recs
+
+
+def k5_frame_ops(cfg):
+    """Elementwise operations per utterance-frame of K5 apart from its
+    transforms, counted per element on the plain version's frame loop (one
+    utterance, a frame past the first)."""
+    import torch
+
+    from distantspeech_tpu_torch.ops import cuda_flms as cf
+
+    rng = np.random.default_rng(0)
+    C, Lf, T = cfg.n_mics - 1, cfg.frame_len, 3
+    F = Lf + 1
+    bm = torch.as_tensor(rng.standard_normal((1, C, T * Lf)))
+    d = torch.as_tensor(rng.standard_normal((1, T * Lf)))
+    yp = torch.as_tensor(rng.random((1, T, F)))
+    up = torch.as_tensor(rng.random((1, C, T, F))) if cfg.postfilter else None
+    run = lambda n: cf.tdgsc_frames_plain(bm[..., : n * Lf], d[..., : n * Lf], yp[:, :n],
+                                          up[:, :, :n] if up is not None else None, cfg)
+    return counted(run, T, per_element=True) - counted(run, T - 1, per_element=True)
+
+
+def smoke_k5(dev, card: str, B: int, seconds: int) -> list:
+    """Phase 8: kernel K5 at the gate size and on the time-domain GSC path."""
+    import torch
+
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+    from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig, tdgsc_process
+    from distantspeech_tpu_torch.ops import cuda_flms as cf
+    from distantspeech_tpu_torch.runtime.profiling import benchmark
+
+    tag = f"[{card}]"
+    M = 4
+    geom = ArrayGeometry.linear(M, 0.032)
+    look = (np.pi / 2, 0.0)
+    cfgs = {"core": TdGscConfig(n_mics=M), "vad_guard": TdGscConfig(n_mics=M, vad_guard=True),
+            "postfilter": TdGscConfig(n_mics=M, postfilter=True)}
+
+    def frame_inputs(x, cfg):
+        """What ``fused_tdgsc`` hands the kernel."""
+        fbf, bm = cf.front_end(cf._check(x, cfg), geom, look, cfg)
+        bm = bm.contiguous()
+        return (bm, *(a.contiguous() if a is not None else None for a in cf._kernel_inputs(fbf, bm, cfg)))
+
+    # ---- gate size
+    xg = torch.as_tensor(scene(8, M, FS, seed=3)[0], device=dev)
+    for cname, cfg in cfgs.items():
+        tol = FLIP if cfg.vad_guard else TIGHT
+        ins = frame_inputs(xg, cfg)
+        (got, p), (want, p_want) = cf.tdgsc_frames(*ins, cfg), cf.tdgsc_frames_plain(*ins, cfg)
+        torch.cuda.synchronize()
+        rel, mx = rel_err(got, want)
+        check(bool(torch.isfinite(got).all()), f"fused_tdgsc {cname}: finite {tuple(got.shape)}")
+        check(rel < tol, f"fused_tdgsc {cname} vs plain (B=8, 1 s): rel {rel:.3e} (max abs {mx:.3e}) < {tol:g}; "
+                         f"p max abs {float((p - p_want).abs().max()):.3e}")
+
+    # ---- the time-domain GSC at full size, through tdgsc_process
+    S = seconds * FS
+    xs, env = scene(B, M, S, seed=4)
+    x = torch.as_tensor(xs, device=dev)
+    snr_in = segment_snr_db(xs[:, 0], env, 0)
+    recs = []
+    for cname, name in (("core", "fused_tdgsc"), ("postfilter", "fused_tdgsc (postfilter)")):
+        cfg = cfgs[cname]
+        cf.LAUNCHES["fused_tdgsc"] = 0
+        out, p, bm = tdgsc_process(x, geom, look, cfg, backend="fused")
+        torch.cuda.synchronize()
+        launches = cf.LAUNCHES["fused_tdgsc"]
+        check(launches == 1, f"tdgsc_process fused {cname} launched fused_tdgsc {launches} time(s)")
+        T = S // cfg.frame_len
+        check(tuple(out.shape) == (B, T * cfg.frame_len) and tuple(p.shape) == (B, T, cfg.half_bin)
+              and bool(torch.isfinite(out).all()) and bool(torch.isfinite(p).all()),
+              f"tdgsc_process fused {cname}: finite out {tuple(out.shape)}, p {tuple(p.shape)}")
+        # delay: the alignment filters' 40 samples plus the non-causal 128;
+        # the postfilter's STFT round trip adds a hop
+        delay = 40 + cfg.frame_len // 2 + (cfg.frame_len if cfg.postfilter else 0)
+        snr_out = segment_snr_db(out.cpu().numpy(), env[:, : out.shape[1]], delay)
+        check(snr_out > snr_in, f"tdgsc_process fused {cname}: output SNR {snr_out:.2f} dB > input SNR {snr_in:.2f} dB (mic 0)")
+        ins = frame_inputs(x, cfg)
+        (want, p_want), plain_ms = timed_once(cf.tdgsc_frames_plain, *ins, cfg)
+        rel, mx = rel_err(out, want)
+        # the postfilter thresholds raw ratios (OM-LSA's absence decision
+        # gamma_s < gamma_low | omega < omega_low), so over 8.2M bin-frames a
+        # last-bit difference between an FFT and a dense DFT can flip one:
+        # bench.py's decision-flip gate; the float64 plain version shows
+        # whether the kernel strays further from exact than the plain one
+        tol = FLIP if cfg.postfilter else TIGHT
+        check(rel < tol, f"fused_tdgsc {cname} at full size vs plain: rel {rel:.3e} (max abs {mx:.3e}) < {tol:g}; "
+                         f"p max abs {float((p - p_want).abs().max()):.3e}")
+        want64 = cf.tdgsc_frames_plain(*(a.double() if a is not None else None for a in ins), cfg)[0]
+        print(f"fused_tdgsc {cname} at full size against the float64 plain version: kernel rel "
+              f"{rel_err(out, want64)[0]:.3e}, float32 plain rel {rel_err(want, want64)[0]:.3e}", flush=True)
+        ms = benchmark(cf.tdgsc_frames, *ins, cfg)["per_call_s"] * 1e3
+        t_path = benchmark(tdgsc_process, x, geom, look, cfg, "fused")["per_call_s"]
+        print(f"{name}: kernel {ms:.3f} ms/call; tdgsc_process fused {t_path * 1e3:.3f} ms/call, "
+              f"{B * S / FS / t_path:.0f} audio-s/s (B={B}, M={M}, {seconds} s); plain {plain_ms:.1f} ms {tag}", flush=True)
+
+        # bound: bytes of the kernel's inputs and outputs; operations: each
+        # 512-point transform at a real FFT's 2.5 N log2 N + N, 5C + 2 per
+        # frame (2 more with the postfilter), plus the per-bin elementwise work
+        C, N = M - 1, 2 * cfg.frame_len
+        nbytes = 4 * (sum(a.numel() for a in ins if a is not None) + out.numel() + p.numel())
+        n_fft = 5 * C + 2 + (2 if cfg.postfilter else 0)
+        fft_ops = B * T * n_fft * (2.5 * N * np.log2(N) + N)
+        elem_ops = B * T * k5_frame_ops(cfg)
+        b, by = bound(nbytes, fft_ops + elem_ops)
+        print(f"bound {name}: {b:.4f} ms by {by} ({nbytes} B; {fft_ops:.4g} transform + {elem_ops:.4g} "
+              f"elementwise ops)", flush=True)
+        recs.append({"name": name, "route": "cuda", "source": "distantspeech_tpu_torch/csrc/flms.cu",
+                     "replaces": "distantspeech_tpu/ops/pallas_flms.py:" + ("715" if cfg.postfilter else "164"),
+                     "launches": launches, "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b, "bound_by": by, "library_ms": None})
+    return recs
 
 
 if __name__ == "__main__":

@@ -10,7 +10,10 @@ Hopper (``csrc/``), each with a plain PyTorch version beside it.
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 
 Ported so far: the flagship 8-mic MVDR + OM-LSA path (STFT -> MCRA -> gated
-MVDR -> OM-LSA -> ISTFT) with its ``scan``, ``fused`` and ``mega`` backends.
+MVDR -> OM-LSA -> ISTFT) with its ``scan``, ``pallas``, ``fused`` and
+``mega`` backends, and the time-domain GSC (DC notch -> alignment -> FBF /
+blocking matrix -> MCRA-gated FLMS canceller, optionally the OM-LSA-multi
+postfilter) with its ``scan`` and ``fused`` backends.
 """
 
 from distantspeech_tpu_torch._device import resolve_device

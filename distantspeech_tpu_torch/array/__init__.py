@@ -1,3 +1,4 @@
+from distantspeech_tpu_torch.array.alignment import fractional_delay_filter_bank, time_alignment_filters
 from distantspeech_tpu_torch.array.geometry import (
     ArrayGeometry,
     circular_array,
@@ -14,4 +15,6 @@ __all__ = [
     "compute_tau",
     "omega_bins",
     "steering_vector",
+    "fractional_delay_filter_bank",
+    "time_alignment_filters",
 ]

@@ -4,7 +4,15 @@ from distantspeech_tpu_torch.beamform.enhance import (
     enhance_init,
     enhance_process,
     enhance_scan,
+    enhance_scan_pallas,
     enhance_step,
+)
+from distantspeech_tpu_torch.beamform.tdgsc import (
+    TdGscConfig,
+    TdGscState,
+    tdgsc_init,
+    tdgsc_process,
+    tdgsc_step,
 )
 from distantspeech_tpu_torch.beamform.mvdr import (
     MvdrConfig,
@@ -21,6 +29,7 @@ __all__ = [
     "enhance_init",
     "enhance_step",
     "enhance_scan",
+    "enhance_scan_pallas",
     "enhance_process",
     "MvdrConfig",
     "MvdrState",
@@ -28,4 +37,9 @@ __all__ = [
     "mvdr_step",
     "mvdr_scan",
     "mvdr_process",
+    "TdGscConfig",
+    "TdGscState",
+    "tdgsc_init",
+    "tdgsc_step",
+    "tdgsc_process",
 ]

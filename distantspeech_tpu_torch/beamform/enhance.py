@@ -4,8 +4,9 @@ Counterpart of ``distantspeech_tpu/beamform/enhance.py``: the MCRA-gated
 adaptive MVDR beamformer followed by the decision-directed OM-LSA gain
 ``G = clip(G_H1^p gmin^(1-p), gmin, 1)`` on its output, driven by the
 MVDR's own MCRA track.  ``enhance_step`` is one frame over all bins and any
-utterance batch; ``enhance_scan`` loops it over frames; ``enhance_process``
-picks the backend.
+utterance batch; ``enhance_scan`` loops it over frames;
+``enhance_scan_pallas`` splits the same math into an MCRA pre-scan and the
+K1 kernel; ``enhance_process`` picks the backend.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ from distantspeech_tpu_torch._device import resolve_device
 from distantspeech_tpu_torch.array.geometry import ArrayGeometry
 from distantspeech_tpu_torch.array.steering import steering_vector
 from distantspeech_tpu_torch.beamform.mvdr import MvdrConfig, MvdrState, mvdr_init, mvdr_step
+from distantspeech_tpu_torch.noise.mcra import mcra_run
 from distantspeech_tpu_torch.ops.cuda_enhance import fused_enhance, fused_enhance_full
+from distantspeech_tpu_torch.ops.cuda_mvdr import fused_mvdr_scan
 from distantspeech_tpu_torch.transform import StftConfig, analysis, synthesis
 
 
@@ -71,6 +74,30 @@ def enhance_scan(cfg: EnhanceConfig, steer: torch.Tensor, state: EnhanceState, Z
     return state, torch.stack(ys)
 
 
+def enhance_scan_pallas(cfg: EnhanceConfig, steer: torch.Tensor, Zt: torch.Tensor) -> torch.Tensor:
+    """``enhance_scan`` as two passes: MCRA over the frames of the mic-0
+    power (plain PyTorch), then the gated MVDR and the OM-LSA gain in the
+    K1 kernel (``ops.cuda_mvdr.fused_mvdr_scan``; its plain version on a
+    CPU tensor).  The covariance gate is ``p < p_vad``, and with
+    ``vad_guard`` also ``S / Smin <= delta_s``.
+
+    Zt: [T, B, F, M] (exactly 4-D).  Returns Y [T, B, F]."""
+    if Zt.ndim != 4:
+        raise ValueError(
+            f"enhance_scan_pallas needs Zt of shape [T, B, F, M] (4-D), got {tuple(Zt.shape)}; "
+            "add a size-1 batch axis for single utterances, or use backend='scan'"
+        )
+    mv = cfg.mvdr
+    lam, p, sr = mcra_run(mv.mcra, Zt[..., 0].abs() ** 2, return_sr=True)  # [T, B, F]
+    gate = p < mv.p_vad
+    if mv.vad_guard:
+        gate = gate & (sr <= mv.mcra.delta_s)
+    return fused_mvdr_scan(
+        Zt, gate.to(p.dtype), steer, alpha_v=mv.alpha_v, diag=mv.diag, rel_diag=mv.rel_diag,
+        p=p, lam=lam, alpha_xi=cfg.alpha_xi, gmin=cfg.gmin,
+    )
+
+
 def enhance_process(
     x,
     geometry: ArrayGeometry,
@@ -83,14 +110,16 @@ def enhance_process(
 ) -> torch.Tensor:
     """Offline MVDR + OM-LSA of a time-domain batch.  x: [..., M, S] -> [..., S].
 
-    backend: 'scan' (the per-frame step loop, any batch shape), 'fused'
-    (analysis and synthesis as matrix products around one CUDA kernel that
-    runs MCRA, the gated MVDR and OM-LSA; x [B, M, S]) or 'mega' (the whole
-    pipeline in one CUDA kernel, waveform in and out; x [B, M, S]).  On a CPU
-    tensor 'fused' and 'mega' run the kernels' plain PyTorch version.
-    'pallas' (kernel K1, ``pallas_mvdr_scan``) is not ported yet.
+    backend: 'scan' (the per-frame step loop, any batch shape), 'pallas'
+    (``enhance_scan_pallas``: an MCRA pre-scan, then the K1 CUDA kernel for
+    the gated MVDR and OM-LSA; x [B, M, S]), 'fused' (analysis and synthesis
+    as matrix products around one CUDA kernel that runs MCRA, the gated
+    MVDR and OM-LSA; x [B, M, S]) or 'mega' (the whole pipeline in one CUDA
+    kernel, waveform in and out; x [B, M, S]).  On a CPU tensor 'pallas',
+    'fused' and 'mega' run the kernels' plain PyTorch version.
 
-    inv_mode ('fused' / 'mega' only): 'ldl' refactors the loaded noise
+    inv_mode ('fused' / 'mega' only; 'pallas' ignores it, as the JAX
+    package does, and always solves by LDL^H): 'ldl' refactors the loaded noise
     covariance every frame; 'rank1' switches to Bennett rank-1 LDL^H factor
     updates after a 64-frame exact warmup (see
     ``ops.cuda_mvdr._mvdr_update_rank1``).  ``t_chunk`` sets the warmup
@@ -100,20 +129,20 @@ def enhance_process(
     x = torch.as_tensor(x, device=dev)
     angle_rad = np.asarray(look_angle_deg, dtype=np.float64) / 180.0 * np.pi
     steer_np = steering_vector(geometry, angle_rad, cfg.stft.n_fft)
-    if backend == "pallas":
-        raise NotImplementedError(
-            "backend='pallas' (kernel K1, pallas_mvdr_scan) is ported in the next slice; "
-            "use 'scan', 'fused' or 'mega'"
-        )
     if backend in ("fused", "mega"):
         run = fused_enhance_full if backend == "mega" else fused_enhance
         return run(x, steer_np, cfg, t_chunk=t_chunk, inv_mode=inv_mode)
-    if backend != "scan":
-        raise ValueError(f"backend must be 'scan', 'fused' or 'mega', got {backend!r}")
+    if backend not in ("scan", "pallas"):
+        raise ValueError(f"backend must be 'scan', 'pallas', 'fused' or 'mega', got {backend!r}")
+    if backend == "pallas" and x.ndim != 3:
+        raise ValueError(f"backend='pallas' needs x of shape [B, M, S], got {tuple(x.shape)}")
 
     X = analysis(x, cfg.stft)  # [..., M, T, F]
     Zt = torch.movedim(torch.movedim(X, -3, -1), -3, 0)  # [T, ..., F, M]
     steer = torch.as_tensor(steer_np, dtype=Zt.dtype, device=dev)
-    state = enhance_init(cfg, geometry.n_mics, batch_shape=Zt.shape[1:-2], cdtype=Zt.dtype, device=dev)
-    _, Y = enhance_scan(cfg, steer, state, Zt)
+    if backend == "pallas":
+        Y = enhance_scan_pallas(cfg, steer, Zt)
+    else:
+        state = enhance_init(cfg, geometry.n_mics, batch_shape=Zt.shape[1:-2], cdtype=Zt.dtype, device=dev)
+        _, Y = enhance_scan(cfg, steer, state, Zt)
     return synthesis(torch.movedim(Y, 0, -2), cfg.stft)

@@ -15,11 +15,16 @@
 
 #include <cuda_runtime.h>
 
-// Field order and types are mirrored by _LaneParams in ops/cuda_enhance.py.
-struct LaneParams {
+// Field order and types are mirrored by _McraParams / _LaneParams in
+// ops/cuda_mvdr.py.
+struct McraParams {
   int L;
   float alpha_s, one_m_alpha_s, alpha_p, one_m_alpha_p, alpha_d, one_m_alpha_d;
   float delta_s, p_min, p_max;
+};
+
+struct LaneParams {
+  McraParams mc;
   float b0, b1, b2;
   float alpha_v, beta_v, ba_v, inv_alpha_v;
   float diag, rel_diag_m, p_vad;
@@ -61,12 +66,18 @@ __device__ __forceinline__ void lane_init(Lane<M>& s) {
   s.Ld = 0.f;
 }
 
+// The MCRA state of one lane, for kernels that keep it outside a Lane<M>.
+struct McraLane {
+  float S, Smin, Stmp, P, Lam;
+};
+
 // One MCRA frame at global frame tg (the counters ell / frm_cnt in closed
 // form: the minima window resets at tg % L == L-1, p is forced to 0 for
-// tg < 2L, frame 0 seeds).  Returns p; writes lambda_d and S/Smin.
-template <int M>
-__device__ __forceinline__ float mcra_frame(Lane<M>& s, int tg, float Yp, float Sf, const BinKind& bk,
-                                            const LaneParams& lp, float& lam, float& sr) {
+// tg < 2L, frame 0 seeds).  St is any state with the fields S, Smin, Stmp,
+// P, Lam (Lane<M> or McraLane).  Returns p; writes lambda_d and S/Smin.
+template <class St>
+__device__ __forceinline__ float mcra_frame(St& s, int tg, float Yp, float Sf, const BinKind& bk,
+                                            const McraParams& lp, float& lam, float& sr) {
   float S_out, Smin_out, Stmp_out, p_sel, lam_pre;
   if (tg == 0) {
     S_out = s.S;
@@ -339,6 +350,21 @@ __device__ __forceinline__ void mvdr_update_rank1(Lane<M>& s, const float (&zr)[
   if (lp.refresh) s.Ld = lp.alpha_v * s.Ld;
 }
 
+// The decision-directed OM-LSA gain on the MVDR output y, from the MCRA
+// speech presence p and noise PSD lam: G = clip(G_H1^p gmin^(1-p), gmin, 1)
+// through exp / log.  Updates the (G_H1, gamma) carry; returns y G.
+template <int M>
+__device__ __forceinline__ float2 omlsa_gain(Lane<M>& s, float2 y, float p, float lam, const LaneParams& lp) {
+  const float gamma = (y.x * y.x + y.y * y.y) / fmaxf(lam, 1e-10f);
+  const float xi = lp.alpha_xi * (s.Gh * s.Gh) * s.Gam + lp.one_m_alpha_xi * fmaxf(gamma - 1.f, 0.f);
+  const float G_H1 = xi / (1.f + xi);
+  const float logG = p * logf(fmaxf(G_H1, 1e-30f)) + (1.f - p) * lp.log_gmin;
+  const float G = fminf(fmaxf(expf(logG), lp.gmin), 1.f);
+  s.Gh = G_H1;
+  s.Gam = gamma;
+  return make_float2(y.x * G, y.y * G);
+}
+
 // One full frame of one lane: chunk bookkeeping of inv_mode='rank1',
 // MCRA, the covariance gate, the MVDR update and output, and the OM-LSA
 // gain.  Returns the gained output bin.
@@ -353,28 +379,20 @@ __device__ __forceinline__ float2 lane_frame(Lane<M>& s, const float (&zr)[M], c
     s.Ld = refresh_loading<M>(s.Rr, s.Ri, s.Ld, lp);
 
   float lam, sr;
-  const float p = mcra_frame<M>(s, tg, zr[0] * zr[0] + zi[0] * zi[0], Sf, bk, lp, lam, sr);
+  const float p = mcra_frame(s, tg, zr[0] * zr[0] + zi[0] * zi[0], Sf, bk, lp.mc, lam, sr);
   bool upd = p < lp.p_vad;
-  if (lp.vad_guard) upd = upd && sr <= lp.delta_s;
+  if (lp.vad_guard) upd = upd && sr <= lp.mc.delta_s;
   if (upd) {
     if (steady)
       mvdr_update_rank1<M>(s, zr, zi, ar, ai, lp);
     else
       mvdr_update_ldl<M>(s, zr, zi, ar, ai, lp);
   }
-  const float2 y = mvdr_output<M>(zr, zi, ar, ai, s.Ur, s.Ui);
-
-  const float gamma = (y.x * y.x + y.y * y.y) / fmaxf(lam, 1e-10f);
-  const float xi = lp.alpha_xi * (s.Gh * s.Gh) * s.Gam + lp.one_m_alpha_xi * fmaxf(gamma - 1.f, 0.f);
-  const float G_H1 = xi / (1.f + xi);
-  const float logG = p * logf(fmaxf(G_H1, 1e-30f)) + (1.f - p) * lp.log_gmin;
-  const float G = fminf(fmaxf(expf(logG), lp.gmin), 1.f);
-  s.Gh = G_H1;
-  s.Gam = gamma;
+  const float2 y = omlsa_gain<M>(s, mvdr_output<M>(zr, zi, ar, ai, s.Ur, s.Ui), p, lam, lp);
 
   if (lp.rank1 && chunk == lp.warm_chunks - 1 && pos == lp.t_chunk - 1) {  // handover: factor in place
     const float load = ldl_factor_into<M>(s.Rr, s.Ri, lp);
     if (lp.refresh) s.Ld = load;
   }
-  return make_float2(y.x * G, y.y * G);
+  return y;
 }

@@ -56,10 +56,13 @@ import torch
 from distantspeech_tpu_torch.noise.mcra import _freq_smooth
 from distantspeech_tpu_torch.ops import _build
 from distantspeech_tpu_torch.ops.cuda_mvdr import (
+    _LaneParams,
     _ldl_factor_into,
+    _mcra_params,
     _mvdr_output,
     _mvdr_update_ldl,
     _mvdr_update_rank1,
+    _omlsa_gain,
     _refresh_loading,
 )
 from distantspeech_tpu_torch.ops.framing import overlap_add
@@ -152,6 +155,12 @@ def _synthesis_planes(Y: torch.Tensor, stft) -> torch.Tensor:
     return overlap_add(frames, stft.hop)[..., : stft.hop * T] * stft.synthesis_gain
 
 
+def _bin_masks(F: int, device):
+    """MCRA's bin classes (interior, lead, first, last) as [F] masks."""
+    k = torch.arange(F, device=device)
+    return (k >= 1) & (k <= F - 2), k <= F - 2, k == 0, k == F - 1
+
+
 def _mcra_frame(tg, Yp, Sf_t, st, bins, mc):
     """One MCRA frame on [B, F] lanes at global frame ``tg`` (the counters
     ell / frm_cnt of ``noise.mcra`` in closed form: the minima window
@@ -193,8 +202,7 @@ def enhance_lanes_plain(Z, Sf, steer_planes, cfg, t_chunk: int, inv_mode: str = 
     in Z's dtype."""
     T, M, _, B, F = Z.shape
     mv, mc = cfg.mvdr, cfg.mvdr.mcra
-    k = torch.arange(F, device=Z.device)
-    bins = ((k >= 1) & (k <= F - 2), k <= F - 2, k == 0, k == F - 1)
+    bins = _bin_masks(F, Z.device)
     ar = [steer_planes[m, 0] for m in range(M)]
     ai = [steer_planes[m, 1] for m in range(M)]
     zero = Z.new_zeros((B, F))
@@ -207,7 +215,6 @@ def enhance_lanes_plain(Z, Sf, steer_planes, cfg, t_chunk: int, inv_mode: str = 
     rank1 = inv_mode == "rank1"
     refresh = rank1 and bool(mv.rel_diag)
     warm = _warm_chunks(t_chunk)
-    log_gmin = float(np.log(cfg.gmin))
     out = Z.new_empty((T, 2, B, F))
     for t in range(T):
         chunk, pos = divmod(t, t_chunk)
@@ -225,15 +232,7 @@ def enhance_lanes_plain(Z, Sf, steer_planes, cfg, t_chunk: int, inv_mode: str = 
         else:
             _mvdr_update_ldl(zr, zi, upd, ar, ai, Rr, Ri, Ur, Ui, M, mv.alpha_v, mv.diag, mv.rel_diag)
         yr, yi = _mvdr_output(zr, zi, ar, ai, Ur, Ui, M)
-
-        gamma = (yr * yr + yi * yi) / torch.clamp(lam, min=1e-10)
-        xi = cfg.alpha_xi * Gh**2 * Gam + (1.0 - cfg.alpha_xi) * torch.clamp(gamma - 1.0, min=0.0)
-        G_H1 = xi / (1.0 + xi)
-        logG = p * torch.log(torch.clamp(G_H1, min=1e-30)) + (1.0 - p) * log_gmin
-        G = torch.clamp(torch.exp(logG), cfg.gmin, 1.0)
-        Gh, Gam = G_H1, gamma
-        out[t, 0] = yr * G
-        out[t, 1] = yi * G
+        (out[t, 0], out[t, 1]), Gh, Gam = _omlsa_gain(yr, yi, p, lam, Gh, Gam, cfg.alpha_xi, cfg.gmin)
         if rank1 and chunk == warm - 1 and pos == t_chunk - 1:  # handover: factor in place
             load = _ldl_factor_into(Rr, Ri, M, mv.diag, mv.rel_diag)
             if refresh:
@@ -253,37 +252,11 @@ def fused_enhance_plain(x: torch.Tensor, steer, cfg, t_chunk: int = None, inv_mo
 # ---- the CUDA side ----------------------------------------------------------
 
 
-class _LaneParams(ctypes.Structure):
-    """Mirror of ``LaneParams`` in csrc/enhance_lane.cuh (field order and
-    types must match).  Derived constants (1 - alpha, ...) are computed
-    here in double, as the plain version's Python scalars are."""
-
-    _fields_ = [
-        ("L", ctypes.c_int),
-        ("alpha_s", ctypes.c_float), ("one_m_alpha_s", ctypes.c_float),
-        ("alpha_p", ctypes.c_float), ("one_m_alpha_p", ctypes.c_float),
-        ("alpha_d", ctypes.c_float), ("one_m_alpha_d", ctypes.c_float),
-        ("delta_s", ctypes.c_float), ("p_min", ctypes.c_float), ("p_max", ctypes.c_float),
-        ("b0", ctypes.c_float), ("b1", ctypes.c_float), ("b2", ctypes.c_float),
-        ("alpha_v", ctypes.c_float), ("beta_v", ctypes.c_float),
-        ("ba_v", ctypes.c_float), ("inv_alpha_v", ctypes.c_float),
-        ("diag", ctypes.c_float), ("rel_diag_m", ctypes.c_float), ("p_vad", ctypes.c_float),
-        ("alpha_xi", ctypes.c_float), ("one_m_alpha_xi", ctypes.c_float),
-        ("gmin", ctypes.c_float), ("log_gmin", ctypes.c_float),
-        ("vad_guard", ctypes.c_int), ("rank1", ctypes.c_int), ("refresh", ctypes.c_int),
-        ("t_chunk", ctypes.c_int), ("warm_chunks", ctypes.c_int),
-    ]
-
-
 def _lane_params(cfg, M: int, t_chunk: int, inv_mode: str) -> _LaneParams:
     mv, mc = cfg.mvdr, cfg.mvdr.mcra
     rank1 = inv_mode == "rank1"
     return _LaneParams(
-        L=mc.L,
-        alpha_s=mc.alpha_s, one_m_alpha_s=1.0 - mc.alpha_s,
-        alpha_p=mc.alpha_p, one_m_alpha_p=1.0 - mc.alpha_p,
-        alpha_d=mc.alpha_d, one_m_alpha_d=1.0 - mc.alpha_d,
-        delta_s=mc.delta_s, p_min=mc.p_min, p_max=mc.p_max,
+        mc=_mcra_params(mc),
         b0=mc.b[0], b1=mc.b[1], b2=mc.b[2],
         alpha_v=mv.alpha_v, beta_v=1.0 - mv.alpha_v,
         ba_v=(1.0 - mv.alpha_v) / mv.alpha_v, inv_alpha_v=1.0 / mv.alpha_v,
@@ -303,25 +276,8 @@ def _library() -> ctypes.CDLL:
         lib.fused_enhance_launch.restype = i
         lib.fused_enhance_full_launch.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p, p]
         lib.fused_enhance_full_launch.restype = i
-        lib.enhance_error_string.argtypes = [i]
-        lib.enhance_error_string.restype = ctypes.c_char_p
         lib._signatures_set = True
     return lib
-
-
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: the kernel takes CUDA tensors, got one on {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: the kernel runs in float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: the kernel takes contiguous tensors")
-
-
-def _raise_on(lib, err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: {lib.enhance_error_string(err).decode()} ({err})")
 
 
 def enhance_lanes(Z, Sf, steer_planes, cfg, t_chunk: int, inv_mode: str = "ldl") -> torch.Tensor:
@@ -330,7 +286,7 @@ def enhance_lanes(Z, Sf, steer_planes, cfg, t_chunk: int, inv_mode: str = "ldl")
     CPU tensors run ``enhance_lanes_plain``."""
     if Z.device.type == "cpu":
         return enhance_lanes_plain(Z, Sf, steer_planes, cfg, t_chunk, inv_mode)
-    _check_cuda("fused_enhance", Z, Sf, steer_planes)
+    _build.check_tensors("fused_enhance", Z, Sf, steer_planes)
     T, M, _, B, F = Z.shape
     if M not in _KERNEL_MICS:
         raise ValueError(f"fused_enhance: the kernel is built for M in {_KERNEL_MICS}, got M={M}")
@@ -343,7 +299,7 @@ def enhance_lanes(Z, Sf, steer_planes, cfg, t_chunk: int, inv_mode: str = "ldl")
         Z.data_ptr(), Sf.data_ptr(), steer_planes.data_ptr(), Y.data_ptr(), M, B, F, T,
         ctypes.addressof(params), torch.cuda.current_stream(Z.device).cuda_stream,
     )
-    _raise_on(lib, err, "fused_enhance")
+    _build.check_launch("enhance", err, "fused_enhance")
     LAUNCHES["fused_enhance"] += 1
     return Y
 
@@ -377,7 +333,7 @@ def fused_enhance_full(x: torch.Tensor, steer, cfg, t_chunk: int = None, inv_mod
         return fused_enhance_plain(x, steer, cfg, t_chunk, inv_mode)
     x, planes, tc = _prepare(x, steer, cfg, t_chunk, inv_mode)
     x = x.contiguous()
-    _check_cuda("fused_enhance_full", x)
+    _build.check_tensors("fused_enhance_full", x)
     B, M, S = x.shape
     stft = cfg.stft
     if M not in _KERNEL_MICS:
@@ -393,6 +349,6 @@ def fused_enhance_full(x: torch.Tensor, steer, cfg, t_chunk: int = None, inv_mod
         x.data_ptr(), tabs.data_ptr(), planes.data_ptr(), y.data_ptr(), M, B, stft.n_fft, T,
         stft.synthesis_gain, ctypes.addressof(params), torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _raise_on(lib, err, "fused_enhance_full")
+    _build.check_launch("enhance", err, "fused_enhance_full")
     LAUNCHES["fused_enhance_full"] += 1
     return y

@@ -1,8 +1,10 @@
-"""Per-lane MVDR math of the fused kernels, in plain PyTorch.
+"""Per-lane MVDR math of the fused kernels, in plain PyTorch, and kernel K1.
 
-Counterpart of the lane functions of ``distantspeech_tpu/ops/pallas_mvdr.py``
-and the plain version of the device functions in ``csrc/enhance_lane.cuh``,
-which follow these line by line.  A lane is one (utterance, bin) pair; every
+Counterpart of ``distantspeech_tpu/ops/pallas_mvdr.py``: its lane functions
+are the plain version of the device functions in ``csrc/enhance_lane.cuh``,
+which follow these line by line, and ``fused_mvdr_scan`` replaces its
+Pallas kernel ``pallas_mvdr_scan`` (``_mvdr_kernel`` and
+``_mvdr_omlsa_kernel``) with the CUDA kernel of ``csrc/mvdr.cu``.  A lane is one (utterance, bin) pair; every
 quantity here is a list of per-mic [B, F] real tensors (split complex), and
 the state is held in nested lists that the functions update in place:
 
@@ -14,11 +16,37 @@ the state is held in nested lists that the functions update in place:
 
 A gate ``upd`` (bool [B, F], or None for always) selects per lane between
 the updated and the held state, as the reference's VAD gate does.
+
+``fused_mvdr_scan`` is the frame loop of the ``pallas`` backend: spectra,
+an external covariance gate and, optionally, the MCRA tracks p and
+lambda_d in; the MVDR output (with the OM-LSA gain when p and lambda_d are
+given) out.  The gate is an input, so no MCRA runs in the kernel, and the
+kernel and its plain version see the same gate decisions.  The TPU
+kernel's tiling (``f_tile``, ``t_chunk``, the joint 8 x ``f_tile`` lane
+packing and its padding) is dropped: one CUDA thread runs one (utterance,
+bin) lane through every frame, and the ragged last block is masked.
+Without a rank-1 mode the numerics do not depend on any chunking.
+
+What bounds K1 on an H100 at the flagship size (B=64, M=8, 4 s, T=500,
+F=129): it moves the spectra, the gate and the MCRA tracks in and the
+output out (~350 MB, ~0.1 ms at 3.35 TB/s) and does ~5e9 float32
+operations, nearly all on the open-gate frames (~0.08 ms at 67 TFLOP/s),
+so bytes bound it.  This first version reads each lane's M
+complex inputs as M float2 loads, which neighbouring threads issue at a
+stride of M * 8 bytes, and keeps the lane state in registers.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
+
+from distantspeech_tpu_torch.ops import _build
+
+LAUNCHES = {"fused_mvdr_scan": 0}
+_KERNEL_MICS = (2, 4, 8)  # the M the CUDA templates are instantiated for
 
 
 def _cmul(ar, ai, br, bi):
@@ -233,3 +261,151 @@ def _mvdr_update_rank1(zr, zi, upd, ar, ai, Rr, Ri, Ur, Ui, M, alpha_v, Ld=None)
     if Ld is None:
         return None
     return _gated(upd, alpha_v * Ld, Ld)
+
+
+def _omlsa_gain(yr, yi, p, lam, Gh, Gam, alpha_xi: float, gmin: float):
+    """The decision-directed OM-LSA gain on the MVDR output (y = yr + i yi):
+    G = clip(G_H1^p gmin^(1-p), gmin, 1) through exp / log, with the
+    previous frame's (G_H1, gamma) carry.  Returns ((yr G, yi G), G_H1,
+    gamma)."""
+    gamma = (yr * yr + yi * yi) / torch.clamp(lam, min=1e-10)
+    xi = alpha_xi * Gh**2 * Gam + (1.0 - alpha_xi) * torch.clamp(gamma - 1.0, min=0.0)
+    G_H1 = xi / (1.0 + xi)
+    logG = p * torch.log(torch.clamp(G_H1, min=1e-30)) + (1.0 - p) * float(np.log(gmin))
+    G = torch.clamp(torch.exp(logG), gmin, 1.0)
+    return (yr * G, yi * G), G_H1, gamma
+
+
+def _validate_scan(Z, p, lam):
+    if (p is None) != (lam is None):
+        raise ValueError(
+            "fused_mvdr_scan: the fused OM-LSA mode needs BOTH p and lam "
+            f"(got p={'set' if p is not None else 'None'}, lam={'set' if lam is not None else 'None'})"
+        )
+    if Z.ndim != 4:
+        raise ValueError(f"fused_mvdr_scan: Z must be [T, B, F, M] (4-D), got shape {tuple(Z.shape)}")
+
+
+def fused_mvdr_scan_plain(
+    Z, gate, steer, alpha_v: float = 0.9998, diag: float = 1e-6, rel_diag: float = 0.0,
+    p=None, lam=None, alpha_xi: float = 0.92, gmin: float = 0.0631,
+) -> torch.Tensor:
+    """Plain version of ``fused_mvdr_scan`` (any dtype, any device).
+
+    Z: [T, B, F, M] complex spectra; gate: [T, B, F] (> 0.5 updates the
+    noise covariance that frame); steer: [F, M] complex.  With p and lam
+    ([T, B, F], the MCRA tracks) the OM-LSA gain is applied per frame.
+    Returns Y [T, B, F] in Z's dtype."""
+    _validate_scan(Z, p, lam)
+    T, B, F, M = Z.shape
+    steer = torch.as_tensor(steer, device=Z.device).to(Z.dtype)
+    ar = [steer[:, m].real for m in range(M)]
+    ai = [steer[:, m].imag for m in range(M)]
+    zero = Z.real.new_zeros((B, F))
+    Rr = [[zero] * M for _ in range(M)]
+    Ri = [[zero] * M for _ in range(M)]
+    Ur, Ui = [zero] * M, [zero] * M
+    Gh = Gam = torch.ones_like(zero)
+    Y = Z.new_empty((T, B, F))
+    for t in range(T):
+        zr = [Z[t, ..., m].real for m in range(M)]
+        zi = [Z[t, ..., m].imag for m in range(M)]
+        _mvdr_update_ldl(zr, zi, gate[t] > 0.5, ar, ai, Rr, Ri, Ur, Ui, M, alpha_v, diag, rel_diag)
+        yr, yi = _mvdr_output(zr, zi, ar, ai, Ur, Ui, M)
+        if p is not None:
+            (yr, yi), Gh, Gam = _omlsa_gain(yr, yi, p[t], lam[t], Gh, Gam, alpha_xi, gmin)
+        Y[t] = torch.complex(yr, yi)
+    return Y
+
+
+# ---- the CUDA side ----------------------------------------------------------
+
+
+class _McraParams(ctypes.Structure):
+    """Mirror of ``McraParams`` in csrc/enhance_lane.cuh."""
+
+    _fields_ = [
+        ("L", ctypes.c_int),
+        ("alpha_s", ctypes.c_float), ("one_m_alpha_s", ctypes.c_float),
+        ("alpha_p", ctypes.c_float), ("one_m_alpha_p", ctypes.c_float),
+        ("alpha_d", ctypes.c_float), ("one_m_alpha_d", ctypes.c_float),
+        ("delta_s", ctypes.c_float), ("p_min", ctypes.c_float), ("p_max", ctypes.c_float),
+    ]
+
+
+def _mcra_params(mc) -> _McraParams:
+    """An McraConfig as kernel parameters; 1 - alpha is computed in double,
+    as the plain version's Python scalars are."""
+    return _McraParams(
+        L=mc.L,
+        alpha_s=mc.alpha_s, one_m_alpha_s=1.0 - mc.alpha_s,
+        alpha_p=mc.alpha_p, one_m_alpha_p=1.0 - mc.alpha_p,
+        alpha_d=mc.alpha_d, one_m_alpha_d=1.0 - mc.alpha_d,
+        delta_s=mc.delta_s, p_min=mc.p_min, p_max=mc.p_max,
+    )
+
+
+class _LaneParams(ctypes.Structure):
+    """Mirror of ``LaneParams`` in csrc/enhance_lane.cuh (field order and
+    types must match).  Derived constants (1 - alpha, ...) are computed
+    here in double, as the plain version's Python scalars are."""
+
+    _fields_ = [
+        ("mc", _McraParams),
+        ("b0", ctypes.c_float), ("b1", ctypes.c_float), ("b2", ctypes.c_float),
+        ("alpha_v", ctypes.c_float), ("beta_v", ctypes.c_float),
+        ("ba_v", ctypes.c_float), ("inv_alpha_v", ctypes.c_float),
+        ("diag", ctypes.c_float), ("rel_diag_m", ctypes.c_float), ("p_vad", ctypes.c_float),
+        ("alpha_xi", ctypes.c_float), ("one_m_alpha_xi", ctypes.c_float),
+        ("gmin", ctypes.c_float), ("log_gmin", ctypes.c_float),
+        ("vad_guard", ctypes.c_int), ("rank1", ctypes.c_int), ("refresh", ctypes.c_int),
+        ("t_chunk", ctypes.c_int), ("warm_chunks", ctypes.c_int),
+    ]
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("mvdr")
+    if not getattr(lib, "_signatures_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused_mvdr_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p]
+        lib.fused_mvdr_scan_launch.restype = i
+        lib._signatures_set = True
+    return lib
+
+
+def fused_mvdr_scan(
+    Z, gate, steer, alpha_v: float = 0.9998, diag: float = 1e-6, rel_diag: float = 0.0,
+    p=None, lam=None, alpha_xi: float = 0.92, gmin: float = 0.0631,
+) -> torch.Tensor:
+    """The K1 kernel: the gated MVDR frame loop, optionally with the OM-LSA
+    gain fused in.  Same arguments and result as ``fused_mvdr_scan_plain``,
+    which CPU tensors run; a CUDA tensor launches the kernel (complex64 Z,
+    float32 p and lam, M in 2, 4, 8) or raises."""
+    _validate_scan(Z, p, lam)
+    if Z.device.type == "cpu":
+        return fused_mvdr_scan_plain(Z, gate, steer, alpha_v, diag, rel_diag, p, lam, alpha_xi, gmin)
+    T, B, F, M = Z.shape
+    if Z.dtype != torch.complex64:
+        raise ValueError(f"fused_mvdr_scan: the kernel takes complex64 spectra, got {Z.dtype}")
+    if M not in _KERNEL_MICS:
+        raise ValueError(f"fused_mvdr_scan: the kernel is built for M in {_KERNEL_MICS}, got M={M}")
+    Zf = torch.view_as_real(Z.contiguous())  # [T, B, F, M, 2]
+    g = gate.to(torch.float32).contiguous()
+    sv = torch.view_as_real(torch.as_tensor(steer, device=Z.device).to(torch.complex64).contiguous())
+    extra = () if p is None else (p.contiguous(), lam.contiguous())
+    _build.check_tensors("fused_mvdr_scan", Zf, g, sv, *extra)
+    if g.shape != (T, B, F) or sv.shape != (F, M, 2) or any(a.shape != (T, B, F) for a in extra):
+        raise ValueError("fused_mvdr_scan: gate, p and lam must be [T, B, F] and steer [F, M]")
+    Y = torch.empty((T, B, F, 2), dtype=torch.float32, device=Z.device)
+    params = _LaneParams(
+        alpha_v=alpha_v, beta_v=1.0 - alpha_v, diag=diag, rel_diag_m=rel_diag / M,
+        alpha_xi=alpha_xi, one_m_alpha_xi=1.0 - alpha_xi, gmin=gmin, log_gmin=float(np.log(gmin)),
+    )
+    p_ptr, lam_ptr = (a.data_ptr() for a in extra) if extra else (None, None)
+    err = _library().fused_mvdr_scan_launch(
+        Zf.data_ptr(), g.data_ptr(), p_ptr, lam_ptr, sv.data_ptr(), Y.data_ptr(),
+        M, T, B, F, ctypes.addressof(params), torch.cuda.current_stream(Z.device).cuda_stream,
+    )
+    _build.check_launch("mvdr", err, "fused_mvdr_scan")
+    LAUNCHES["fused_mvdr_scan"] += 1
+    return torch.view_as_complex(Y)

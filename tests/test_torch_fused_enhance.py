@@ -95,8 +95,8 @@ def test_validation():
         ce.fused_enhance(x[0], _steer(), cfg)
     with pytest.raises(ValueError, match="steer"):
         ce.fused_enhance_plain(x, _steer()[:, :2], cfg)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tenh.enhance_process(x, TGeometry.linear(M, 0.032), backend="pallas", device="cpu")
+    with pytest.raises(ValueError, match=r"backend='pallas' needs x of shape \[B, M, S\]"):
+        tenh.enhance_process(x[0], TGeometry.linear(M, 0.032), backend="pallas", device="cpu")
     with pytest.raises(ValueError, match="backend"):
         tenh.enhance_process(x, TGeometry.linear(M, 0.032), backend="nope", device="cpu")
 

@@ -15,7 +15,8 @@ from distantspeech_tpu_torch import resolve_device
 from distantspeech_tpu_torch.array.geometry import ArrayGeometry
 from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, enhance_process
 from distantspeech_tpu_torch.beamform.mvdr import mvdr_process
-from distantspeech_tpu_torch.ops import cuda_enhance as ce
+from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig, tdgsc_process
+from distantspeech_tpu_torch.ops import cuda_enhance as ce, cuda_flms as cf, cuda_mvdr as cm
 from distantspeech_tpu_torch.runtime import profiling
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -57,7 +58,9 @@ def test_the_card_is_the_default_device(monkeypatch):
         lambda: resolve_device("cuda"),
         lambda: enhance_process(x, geom),
         lambda: enhance_process(x[None], geom, backend="mega"),
+        lambda: enhance_process(x[None], geom, backend="pallas"),
         lambda: mvdr_process(x, geom),
+        lambda: tdgsc_process(x[None], geom, cfg=TdGscConfig(n_mics=8), backend="fused"),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -66,12 +69,19 @@ def test_the_card_is_the_default_device(monkeypatch):
 
 def test_cpu_tensors_leave_launches_at_zero():
     ce.LAUNCHES.update(fused_enhance=0, fused_enhance_full=0)
+    cm.LAUNCHES.update(fused_mvdr_scan=0)
+    cf.LAUNCHES.update(fused_tdgsc=0)
     x = np.random.default_rng(0).standard_normal((1, 2, 128 * 6)).astype(np.float32)
     geom = ArrayGeometry.linear(2, 0.032)
-    for backend in ("scan", "fused", "mega"):
+    for backend in ("scan", "pallas", "fused", "mega"):
         y = enhance_process(x, geom, cfg=EnhanceConfig(), backend=backend, device="cpu")
         assert y.shape == (1, 128 * 6) and bool(torch.isfinite(y).all())
+    for postfilter in (False, True):
+        y, p, bm = tdgsc_process(x, geom, (np.pi / 2, 0.0), TdGscConfig(n_mics=2, frame_len=128, postfilter=postfilter),
+                                 backend="fused", device="cpu")
+        assert y.shape == (1, 128 * 6) and p.shape == (1, 6, 129) and bool(torch.isfinite(y).all())
     assert ce.LAUNCHES == {"fused_enhance": 0, "fused_enhance_full": 0}
+    assert cm.LAUNCHES == {"fused_mvdr_scan": 0} and cf.LAUNCHES == {"fused_tdgsc": 0}
 
 
 def test_timing_needs_a_card(monkeypatch):
