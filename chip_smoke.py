@@ -46,7 +46,24 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    TdGscConfig(n_mics=4[, postfilter=True]), backend="fused")`` on B=128 x
    4 x 4 s (one K5 launch each, finite, output SNR above mic 0's), held to
    the plain version again at that size; timings;
-9. the ``kernels`` JSON line, the card line, and the final JSON line.
+9. kernels K7 (``fused_aec``, ``csrc/aec.cu``), K6 (``fused_kws``,
+   ``csrc/kws.cu``) and K8 (``fused_fdgsc``, ``csrc/fdgsc.cu``) against
+   their plain versions at B=8 x 4 mics (K7 and K8 on 1 s, K6 on 2 s so its
+   94-slot tap FIFO wraps; < 1e-3 of max|out|, with the count of flipped
+   decisions printed), and ``full_stack_process(backend="fused")`` against
+   its ``scan`` path in float64 at B=2 x 1 s (< 2e-2);
+10. the full streaming stack (B3) at full size through
+   ``full_stack_process(x, far, ArrayGeometry.linear(4, 0.032), (pi/2, 0),
+   FullStackConfig(n_mics=4), backend="fused")`` on B=128 x 4 x 4 s of an
+   echo scene (one launch each of K7, K6 and K5; finite; the AEC's echo
+   return loss enhancement on mic 0 above 10 dB; output SNR above mic 0's),
+   each kernel and the whole chain held to the plain versions at that size;
+   timings of each stage and of the path;
+11. the FDGSC (B4) at full size through ``fdgsc_process(x,
+   ArrayGeometry.linear(4, 0.032), (pi/2, 0), FdGscConfig(n_mics=4),
+   backend="fused")`` on B=128 x 4 x 4 s (one K8 launch, finite, output SNR
+   above mic 0's), held to the plain version at that size; timings;
+12. the ``kernels`` JSON line, the card line, and the final JSON line.
 """
 
 from __future__ import annotations
@@ -88,13 +105,10 @@ def scene(B, M, S, seed, snr_db=0.0):
     return (tgt[:, None, :] + noise).astype(np.float32), env
 
 
-def segment_snr_db(y, env, delay, start=FS, margin=512):
-    """SNR from target-on and target-off segments: 10 log10((P_on - P_off) /
-    P_off), mean over utterances, where P_on / P_off is the mean power of y
-    where the target envelope (delayed by ``delay`` samples) is on / off for
-    ``margin`` samples either side, after ``start`` (MCRA's 2L = 1.04 s of
-    forced adaptation).  A time-varying postfilter gain is part of the
-    output here, not an error, as it would be in a projection SNR."""
+def segments(env, delay, start=FS, margin=512):
+    """(on, off) masks [B, S]: where the target envelope, delayed by
+    ``delay`` samples, is on / off for ``margin`` samples either side, after
+    ``start``."""
     on = np.zeros_like(env)
     on[:, delay:] = env[:, : env.shape[1] - delay]
 
@@ -106,7 +120,16 @@ def segment_snr_db(y, env, delay, start=FS, margin=512):
         full[:, :start] = False
         return full
 
-    on_m, off_m = eroded(on), eroded(1.0 - on)
+    return eroded(on), eroded(1.0 - on)
+
+
+def segment_snr_db(y, env, delay, start=FS, margin=512):
+    """SNR from target-on and target-off segments: 10 log10((P_on - P_off) /
+    P_off), mean over utterances, where P_on / P_off is the mean power of y
+    in the ``segments`` after ``start`` (MCRA's 2L = 1.04 s of forced
+    adaptation).  A time-varying postfilter gain is part of the output here,
+    not an error, as it would be in a projection SNR."""
+    on_m, off_m = segments(env, delay, start, margin)
     snr = []
     for b in range(y.shape[0]):
         p_on, p_off = np.mean(y[b, on_m[b]] ** 2), np.mean(y[b, off_m[b]] ** 2)
@@ -247,6 +270,7 @@ def main() -> int:
     kernels = smoke(dev, card, B=64, seconds=4)
     kernels += smoke_k1(dev, card, B=64, seconds=4)
     kernels += smoke_k5(dev, card, B=128, seconds=4)
+    kernels += smoke_slice_c(dev, card, B=128, seconds=4)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -710,6 +734,271 @@ def smoke_k5(dev, card: str, B: int, seconds: int) -> list:
                      "replaces": "distantspeech_tpu/ops/pallas_flms.py:" + ("715" if cfg.postfilter else "164"),
                      "launches": launches, "max_abs_err": mx, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b, "bound_by": by, "library_ms": None})
+    return recs
+
+
+def echo_scene(B, M, S, seed):
+    """The full stack's scene: a far end of white noise x 0.5; its echo
+    through one 256-tap decaying path (randn exp(-n/40)), the same on every
+    mic; the 1.3 Hz on/off target burst (as in ``scene``) x 0.5 on every mic;
+    independent noise x 0.05 per mic.  Returns (far [B, S], x [B, M, S], both
+    float32, and the target envelope [B, S])."""
+    rng = np.random.default_rng(seed)
+    far = rng.standard_normal((B, S)) * 0.5
+    ir = rng.standard_normal(256) * np.exp(-np.arange(256) / 40.0)
+    n = S + 255
+    echo = np.fft.irfft(np.fft.rfft(far, n) * np.fft.rfft(ir, n), n)[:, :S]
+    t = np.arange(S) / FS
+    env = (np.sin(2 * np.pi * 1.3 * t + rng.uniform(0, 2 * np.pi, (B, 1))) > 0).astype(np.float64)
+    tgt = env * rng.standard_normal((B, S)) * 0.5
+    x = (echo + tgt)[:, None, :] + 0.05 * rng.standard_normal((B, M, S))
+    return far.astype(np.float32), x.astype(np.float32), env
+
+
+def erle_db(x0, e0, env, start=FS, margin=512):
+    """Echo return loss enhancement of an echo canceller's output e0 on its
+    input x0 (both [B, S]): 10 log10(mean x0^2 / mean e0^2) over the
+    target-off ``segments`` after ``start``, mean over utterances."""
+    _, off = segments(env, 0, start, margin)
+    return float(np.mean([10 * np.log10(np.mean(x0[b, off[b]] ** 2) / np.mean(e0[b, off[b]] ** 2))
+                          for b in range(x0.shape[0])]))
+
+
+def reset_launches():
+    """Every kernel's launch count to 0."""
+    from distantspeech_tpu_torch.ops import cuda_aec, cuda_enhance, cuda_flms, cuda_mvdr
+
+    for mod in (cuda_aec, cuda_enhance, cuda_flms, cuda_mvdr):
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    from distantspeech_tpu_torch.ops import cuda_aec, cuda_enhance, cuda_flms, cuda_mvdr
+
+    return {k: v for mod in (cuda_aec, cuda_enhance, cuda_flms, cuda_mvdr) for k, v in mod.LAUNCHES.items()}
+
+
+def frame_ops(run, T):
+    """Elementwise operations of one frame of a plain version's frame loop,
+    counted per element: ``run(n)`` runs it over n frames."""
+    return counted(run, T, per_element=True) - counted(run, T - 1, per_element=True)
+
+
+def gate_flips(name, flips, total, what):
+    """The gate of a kernel whose plain version can take another discrete
+    decision: the tight gate, unless decisions flipped (then the
+    decision-flip gate)."""
+    print(f"{name}: {flips} of {total} {what} differ from the plain version's", flush=True)
+    return FLIP if flips else TIGHT
+
+
+def smoke_slice_c(dev, card: str, B: int, seconds: int) -> list:
+    """Phases 9-11: kernels K7, K6 and K8 at the gate size, the full stack
+    (B3) and the FDGSC (B4) at full size."""
+    import torch
+
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+    from distantspeech_tpu_torch.beamform.fdgsc import FdGscConfig, fdgsc_process
+    from distantspeech_tpu_torch.ops import cuda_aec as ca, cuda_flms as cf
+    from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, full_stack_process
+    from distantspeech_tpu_torch.runtime.profiling import benchmark
+
+    tag = f"[{card}]"
+    M = 4
+    geom = ArrayGeometry.linear(M, 0.032)
+    look = (np.pi / 2, 0.0)
+    fcfg = FullStackConfig(n_mics=M)
+    acfg, kcfg, gcfg = fcfg.aec, fcfg.kws, fcfg.gsc
+    dcfg = FdGscConfig(n_mics=M)
+    Dn = kcfg.delay_frames_n
+    t_phase = time.perf_counter()
+
+    def aec_inputs(far, x):
+        return tuple(a.contiguous() for a in ca._prepare(far, x, acfg))
+
+    def kws_inputs(x2):
+        return tuple(a.contiguous() for a in cf._kws_inputs(cf._kws_check(x2, kcfg), kcfg))
+
+    def fdgsc_inputs(x):
+        return tuple(a.contiguous() for a in cf.fdgsc_front_end(cf._fdgsc_check(x, dcfg), geom, look, dcfg))
+
+    def tdgsc_inputs(x):
+        fbf, bm = cf.front_end(cf._check(x, gcfg), geom, look, gcfg)
+        bm = bm.contiguous()
+        return (bm, *(a.contiguous() for a in cf._kernel_inputs(fbf, bm, gcfg)))
+
+    def pin_flips(p, p_want):
+        """Frames whose low-bin pinning decision (mean p over bins 32..127
+        above 0.8; those bins are never pinned) differs."""
+        return int(((p[..., 32:128].mean(-1) > 0.8) != (p_want[..., 32:128].mean(-1) > 0.8)).sum())
+
+    def hold_aec(farp, xp, where):
+        """K7 against its plain version; returns (out, max abs err, plain ms)."""
+        (want, uw), plain_ms = timed_once(ca.aec_frames_plain, farp, xp, acfg, True)
+        got, ug = ca.aec_frames(farp, xp, acfg, decisions=True)
+        torch.cuda.synchronize()
+        # the transfer logic thresholds raw energy sums (speex's Davg / Dvar
+        # tests): where a last-bit difference between an FFT and a dense DFT
+        # flips a decision, bench.py's decision-flip gate applies
+        tol = gate_flips(f"fused_aec {where}", int((ug != uw).sum()), uw.numel(), "transfer decisions")
+        rel, mx = rel_err(got, want)
+        check(bool(torch.isfinite(got).all()), f"fused_aec {where}: finite {tuple(got.shape)}")
+        check(rel < tol, f"fused_aec {where} vs plain: rel {rel:.3e} (max abs {mx:.3e}) < {tol:g}")
+        return got, mx, plain_ms
+
+    def hold_kws(x0, d, where):
+        want, plain_ms = timed_once(cf.kws_frames_plain, x0, d, kcfg)
+        got = cf.kws_frames(x0, d, kcfg)
+        torch.cuda.synchronize()
+        rel, mx = rel_err(got, want)
+        check(bool(torch.isfinite(got).all()), f"fused_kws {where}: finite {tuple(got.shape)}")
+        check(rel < TIGHT, f"fused_kws {where} vs plain: rel {rel:.3e} (max abs {mx:.3e}) < {TIGHT:g}")
+        return got, mx, plain_ms
+
+    def hold_fdgsc(ins, where, outs=None):
+        (wo, wp, wb), plain_ms = timed_once(cf.fdgsc_frames_plain, *ins, dcfg)
+        o, p, bm = outs if outs is not None else cf.fdgsc_frames(*ins, dcfg)
+        torch.cuda.synchronize()
+        # the pinning thresholds a mean of p: where it flips, the
+        # decision-flip gate applies
+        tol = gate_flips(f"fused_fdgsc {where}", pin_flips(p, wp), wp.shape[0] * wp.shape[1], "low-bin pinning decisions")
+        rel, mx = rel_err(o, wo)
+        rel_bm, _ = rel_err(bm, wb)
+        dp = float((p - wp).abs().max())
+        check(all(bool(torch.isfinite(a).all()) for a in (o, p, bm)), f"fused_fdgsc {where}: finite")
+        check(rel < tol and rel_bm < tol and dp < tol,
+              f"fused_fdgsc {where} vs plain: out rel {rel:.3e} (max abs {mx:.3e}), bm rel {rel_bm:.3e}, "
+              f"p max abs {dp:.3e}, all < {tol:g}")
+        return mx, plain_ms
+
+    # ---- 9. the kernels at the gate size (B=8, 4 mics) -----------------------
+    far, x, _ = echo_scene(8, M, 2 * FS, seed=6)
+    far, x = torch.as_tensor(far, device=dev), torch.as_tensor(x, device=dev)
+    hold_aec(*aec_inputs(far[:, :FS], x[..., :FS]), "(B=8, 1 s)")
+    x0, d = kws_inputs(x[:, :2])
+    T2 = x0.shape[-1] // kcfg.frame_len
+    check(T2 > Dn, f"fused_kws gate input: T={T2} frames > the FIFO's Dn={Dn} slots (it wraps)")
+    hold_kws(x0, d, "(B=8, 2 s)")
+    xg = torch.as_tensor(scene(8, M, FS, seed=7)[0], device=dev)
+    hold_fdgsc(fdgsc_inputs(xg), "(B=8, 1 s)")
+    got = full_stack_process(x[:2, :, :FS], far[:2, :FS], geom, look, fcfg, backend="fused")
+    ref = full_stack_process(x[:2, :, :FS].double(), far[:2, :FS].double(), geom, look, fcfg, backend="scan", device=dev)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("enhanced", "kws_clean"), got, ref):
+        rel, _ = rel_err(g, r)
+        check(rel < FLIP, f"full_stack_process fused vs the float64 scan path (B=2, 1 s), {name}: rel {rel:.3e} < {FLIP:g}")
+    print(f"full_stack_process fused vs the float64 scan path: p max abs {float((got[2] - ref[2]).abs().max()):.3e}",
+          flush=True)
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- 10. the full stack (B3) at full size ---------------------------------
+    t_phase = time.perf_counter()
+    S = seconds * FS
+    far_np, x_np, env = echo_scene(B, M, S, seed=8)
+    far, x = torch.as_tensor(far_np, device=dev), torch.as_tensor(x_np, device=dev)
+    reset_launches()
+    out, kws_clean, p = full_stack_process(x, far, geom, look, fcfg, backend="fused")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check({k: counts[k] for k in ("fused_aec", "fused_kws", "fused_tdgsc")} == {"fused_aec": 1, "fused_kws": 1, "fused_tdgsc": 1}
+          and sum(counts.values()) == 3, f"full_stack_process fused launched K7, K6 and K5 once each: {counts}")
+    launches = dict(counts)
+    T = S // fcfg.frame_len
+    Sp = T * fcfg.frame_len
+    check(tuple(out.shape) == (B, Sp) and tuple(kws_clean.shape) == (B, Sp) and tuple(p.shape) == (B, T, gcfg.half_bin)
+          and all(bool(torch.isfinite(a).all()) for a in (out, kws_clean, p)),
+          f"full_stack_process fused: finite out {tuple(out.shape)}, kws {tuple(kws_clean.shape)}, p {tuple(p.shape)}")
+    farp, xp = aec_inputs(far, x)
+    echo_free, aec_err, aec_plain_ms = hold_aec(farp, xp, f"(B={B}, {seconds} s)")
+    erle = erle_db(x_np[:, 0, :Sp], echo_free[:, 0].cpu().numpy(), env[:, :Sp])
+    check(erle > 10.0, f"fused_aec: echo return loss enhancement on mic 0 (target off, after 1 s) {erle:.2f} dB > 10 dB")
+    snr_in = segment_snr_db(x_np[:, 0], env, 0)
+    delay = 40 + gcfg.frame_len // 2 + gcfg.frame_len  # alignment, non-causal FLMS, the postfilter's STFT
+    snr_out = segment_snr_db(out.cpu().numpy(), env[:, :Sp], delay)
+    check(snr_out > snr_in, f"full stack: output SNR {snr_out:.2f} dB > mic 0's {snr_in:.2f} dB (the echo counts as noise)")
+    x0, d = kws_inputs(echo_free[:, :2])
+    _, kws_err, kws_plain_ms = hold_kws(x0, d, f"on K7's output (B={B}, {seconds} s)")
+    ef_plain = ca.aec_frames_plain(farp, xp, acfg)
+    chain = (cf.fused_tdgsc_plain(ef_plain, geom, look, gcfg)[0], cf.fused_kws_plain(ef_plain[:, :2], kcfg))
+    for name, g, w in zip(("enhanced", "kws_clean"), (out, kws_clean), chain):
+        rel, _ = rel_err(g, w)
+        check(rel < FLIP, f"full stack fused chain vs the plain chain, {name}: rel {rel:.3e} < {FLIP:g}")
+    ins5 = tdgsc_inputs(echo_free)
+    stages = (
+        ("pre-emphasis", lambda: aec_inputs(far, x)),
+        ("K7 fused_aec", lambda: ca.aec_frames(farp, xp, acfg)),
+        ("KWS inputs", lambda: kws_inputs(echo_free[:, :2])),
+        ("K6 fused_kws", lambda: cf.kws_frames(x0, d, kcfg)),
+        ("TDGSC front end and STFT powers", lambda: tdgsc_inputs(echo_free)),
+        ("K5 fused_tdgsc (postfilter)", lambda: cf.tdgsc_frames(*ins5, gcfg)),
+    )
+    ms = {}
+    for name, fn in stages:
+        ms[name] = benchmark(fn)["per_call_s"] * 1e3
+        print(f"B3 stage {name}: {ms[name]:.3f} ms/call {tag}", flush=True)
+    t_path = benchmark(full_stack_process, x, far, geom, look, fcfg, "fused")["per_call_s"]
+    print(f"full_stack_process fused end to end: {t_path * 1e3:.3f} ms/call, {B * S / FS / t_path:.0f} audio-s/s "
+          f"(B={B}, M={M}, {seconds} s); plain K7 {aec_plain_ms:.1f} ms, K6 {kws_plain_ms:.1f} ms {tag}", flush=True)
+
+    # bounds: each transform at a real FFT's 2.5 N log2 N + N; the elementwise
+    # work of a frame counted per element on the plain version
+    N = 2 * fcfg.frame_len
+    fft_ops = 2.5 * N * np.log2(N) + N
+    L = fcfg.frame_len
+    f1, x1 = torch.as_tensor(far_np[:1, : 3 * L]).double(), torch.as_tensor(x_np[:1, :1, : 3 * L]).double()
+    k7_ops = frame_ops(lambda n: ca.aec_frames_plain(f1[:, : n * L], x1[..., : n * L], acfg), 3)
+    k6_ops = frame_ops(lambda n: cf.kws_frames_plain(x1[:, 0, : n * L], f1[:, : n * L], kcfg), 3)
+    recs = []
+    for name, src, line, nfft, elem, nbytes, err, ms_k, plain_ms in (
+        ("fused_aec", "aec.cu", "pallas_aec.py:47", B * M * T * (4 + 2 * acfg.num_block), B * M * T * k7_ops,
+         4 * (farp.numel() + 2 * xp.numel()), aec_err, ms["K7 fused_aec"], aec_plain_ms),
+        ("fused_kws", "kws.cu", "pallas_flms.py:907", B * T * 7, B * T * k6_ops,
+         4 * 3 * x0.numel(), kws_err, ms["K6 fused_kws"], kws_plain_ms),
+    ):
+        b_ms, by = bound(nbytes, nfft * fft_ops + elem)
+        print(f"bound {name}: {b_ms:.4f} ms by {by} ({nbytes} B; {nfft * fft_ops:.4g} transform + {elem:.4g} "
+              f"elementwise ops)", flush=True)
+        recs.append({"name": name, "route": "cuda", "source": f"distantspeech_tpu_torch/csrc/{src}",
+                     "replaces": f"distantspeech_tpu/ops/{line}", "launches": launches[name], "max_abs_err": err,
+                     "ms": ms_k, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- 11. the FDGSC (B4) at full size ---------------------------------------
+    t_phase = time.perf_counter()
+    xs, env = scene(B, M, S, seed=4)
+    x = torch.as_tensor(xs, device=dev)
+    reset_launches()
+    outs = fdgsc_process(x, geom, look, dcfg, backend="fused")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["fused_fdgsc"] == 1 and sum(counts.values()) == 1, f"fdgsc_process fused launched K8 once: {counts}")
+    o, p, bm = outs
+    check(tuple(o.shape) == (B, Sp) and tuple(p.shape) == (B, T, dcfg.half_bin) and tuple(bm.shape) == (B, M, Sp)
+          and all(bool(torch.isfinite(a).all()) for a in outs),
+          f"fdgsc_process fused: finite out {tuple(o.shape)}, p {tuple(p.shape)}, bm {tuple(bm.shape)}")
+    snr_in = segment_snr_db(xs[:, 0], env, 0)
+    snr_out = segment_snr_db(o.cpu().numpy(), env[:, :Sp], 40 + dcfg.frame_len)  # alignment, the FBF's causality delay
+    check(snr_out > snr_in, f"fdgsc_process fused: output SNR {snr_out:.2f} dB > mic 0's {snr_in:.2f} dB")
+    ins8 = fdgsc_inputs(x)
+    k8_err, k8_plain_ms = hold_fdgsc(ins8, f"(B={B}, {seconds} s)", outs)
+    k8_ms = benchmark(cf.fdgsc_frames, *ins8, dcfg)["per_call_s"] * 1e3
+    t_path = benchmark(fdgsc_process, x, geom, look, dcfg, True, "fused")["per_call_s"]
+    print(f"fused_fdgsc: kernel {k8_ms:.3f} ms/call; fdgsc_process fused {t_path * 1e3:.3f} ms/call, "
+          f"{B * S / FS / t_path:.0f} audio-s/s (B={B}, M={M}, {seconds} s); plain {k8_plain_ms:.1f} ms {tag}", flush=True)
+    c1 = tuple(a[:1].double().cpu() for a in ins8)
+    k8_ops = frame_ops(lambda n: cf.fdgsc_frames_plain(c1[0][:, : n * L], c1[1][..., : n * L], c1[2][:, : n * L],
+                                                      c1[3][:, :n], dcfg), 3)
+    nbytes = 4 * (sum(a.numel() for a in ins8) + o.numel() + p.numel() + bm.numel())
+    nfft = B * T * (3 + 7 * M)
+    b_ms, by = bound(nbytes, nfft * fft_ops + B * T * k8_ops)
+    print(f"bound fused_fdgsc: {b_ms:.4f} ms by {by} ({nbytes} B; {nfft * fft_ops:.4g} transform + "
+          f"{B * T * k8_ops:.4g} elementwise ops)", flush=True)
+    recs.append({"name": "fused_fdgsc", "route": "cuda", "source": "distantspeech_tpu_torch/csrc/fdgsc.cu",
+                 "replaces": "distantspeech_tpu/ops/pallas_flms.py:415", "launches": counts["fused_fdgsc"],
+                 "max_abs_err": k8_err, "ms": k8_ms, "plain_ms": k8_plain_ms, "bound_ms": b_ms, "bound_by": by,
+                 "library_ms": None})
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return recs
 
 

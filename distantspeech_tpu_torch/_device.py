@@ -19,3 +19,11 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch path on the CPU"
         )
     return dev
+
+
+def as_device_tensor(x, device=None) -> torch.Tensor:
+    """A kernel wrapper's input: a tensor stays where it is unless ``device``
+    is given; anything else goes to ``resolve_device(device)``."""
+    if isinstance(x, torch.Tensor) and device is None:
+        return x
+    return torch.as_tensor(x, device=resolve_device(device))

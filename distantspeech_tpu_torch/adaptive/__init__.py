@@ -8,6 +8,8 @@ from distantspeech_tpu_torch.adaptive.feature import (
     pre_emphasis,
 )
 from distantspeech_tpu_torch.adaptive.flms import FlmsConfig, FlmsState, flms_init, flms_set_weights, flms_step
+from distantspeech_tpu_torch.adaptive.aec import AecConfig, AecState, aec_init, aec_step
+from distantspeech_tpu_torch.adaptive.mdf import MdfConfig, MdfState, mdf_adjust_prop, mdf_init, mdf_step
 
 __all__ = [
     "EmphasisState",
@@ -22,4 +24,13 @@ __all__ = [
     "flms_init",
     "flms_set_weights",
     "flms_step",
+    "AecConfig",
+    "AecState",
+    "aec_init",
+    "aec_step",
+    "MdfConfig",
+    "MdfState",
+    "mdf_adjust_prop",
+    "mdf_init",
+    "mdf_step",
 ]

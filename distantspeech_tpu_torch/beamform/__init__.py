@@ -14,6 +14,8 @@ from distantspeech_tpu_torch.beamform.tdgsc import (
     tdgsc_process,
     tdgsc_step,
 )
+from distantspeech_tpu_torch.beamform.gsc_filters import aic_step, bm_bounds, bm_step
+from distantspeech_tpu_torch.beamform.fdgsc import FdGscConfig, FdGscState, fdgsc_init, fdgsc_process, fdgsc_step
 from distantspeech_tpu_torch.beamform.mvdr import (
     MvdrConfig,
     MvdrState,
@@ -42,4 +44,12 @@ __all__ = [
     "tdgsc_init",
     "tdgsc_step",
     "tdgsc_process",
+    "aic_step",
+    "bm_bounds",
+    "bm_step",
+    "FdGscConfig",
+    "FdGscState",
+    "fdgsc_init",
+    "fdgsc_step",
+    "fdgsc_process",
 ]

@@ -16,7 +16,14 @@ of JAX is imported:
 - ``tdgsc_state_from_numpy(d, device)`` with ``d`` the JAX ``TdGscState``:
   ``{"stft_fbf", "mcra", "aic": {"buf", "W", "P", "foreground",
   "d_delay"}, "omlsa": {"mcra", "zeta_Y", "zeta_U", "lambda_d", "gamma",
-  "G_H1", "G", "p", "frm_cnt"}, "stft_y", "stft_bm", "istft_y"}``.
+  "G_H1", "G", "p", "frm_cnt"}, "stft_y", "stft_bm", "istft_y"}``;
+- ``aec_config_from_dict`` / ``aec_state_from_numpy`` (``AecState``, its
+  frame counter ``cnt`` an int), ``kws_config_from_dict`` /
+  ``kws_state_from_numpy`` (``DualMicKwsState``: two FLMS states and the
+  tap FIFO), ``fdgsc_config_from_dict`` / ``fdgsc_state_from_numpy``
+  (``FdGscState``) and ``full_stack_config_from_dict`` /
+  ``full_stack_state_from_numpy`` (``FullStackState``, with the AEC
+  config nested), in the same way.
 """
 
 from __future__ import annotations
@@ -27,12 +34,17 @@ import numpy as np
 import torch
 
 from distantspeech_tpu_torch._device import resolve_device
+from distantspeech_tpu_torch.adaptive.aec import AecConfig, AecState
+from distantspeech_tpu_torch.adaptive.feature import DcNotchState, EmphasisState
 from distantspeech_tpu_torch.adaptive.flms import FlmsState
 from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, EnhanceState
+from distantspeech_tpu_torch.beamform.fdgsc import FdGscConfig, FdGscState
 from distantspeech_tpu_torch.beamform.mvdr import MvdrConfig, MvdrState
 from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig, TdGscState
+from distantspeech_tpu_torch.kws.dual_mic import DualMicKwsConfig, DualMicKwsState
 from distantspeech_tpu_torch.noise.mcra import McraState
 from distantspeech_tpu_torch.noise.omlsa import OmlsaState
+from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, FullStackState
 from distantspeech_tpu_torch.transform import StftConfig
 
 
@@ -67,19 +79,66 @@ def tdgsc_config_from_dict(d: Mapping[str, Any]) -> TdGscConfig:
     return TdGscConfig(**d)
 
 
+def _flms_state(f: Mapping[str, Any], dev) -> FlmsState:
+    t = lambda k: _tensor(f[k], dev)
+    return FlmsState(buf=t("buf"), W=t("W"), P=t("P"), foreground=t("foreground"), d_delay=t("d_delay"))
+
+
+def _omlsa_state(om: Mapping[str, Any], dev) -> OmlsaState:
+    t = lambda k: _tensor(om[k], dev)
+    return OmlsaState(mcra=_mcra_state(om["mcra"], dev), zeta_Y=t("zeta_Y"), zeta_U=t("zeta_U"),
+                      lambda_d=t("lambda_d"), gamma=t("gamma"), G_H1=t("G_H1"), G=t("G"), p=t("p"),
+                      frm_cnt=int(om["frm_cnt"]))
+
+
 def tdgsc_state_from_numpy(d: Mapping[str, Any], device=None) -> TdGscState:
     dev = resolve_device(device)
-    t = lambda a: _tensor(a, dev)
-    aic, om = d["aic"], d["omlsa"]
-    return TdGscState(
-        stft_fbf=t(d["stft_fbf"]),
-        mcra=_mcra_state(d["mcra"], dev),
-        aic=FlmsState(buf=t(aic["buf"]), W=t(aic["W"]), P=t(aic["P"]), foreground=t(aic["foreground"]),
-                      d_delay=t(aic["d_delay"])),
-        omlsa=OmlsaState(mcra=_mcra_state(om["mcra"], dev), zeta_Y=t(om["zeta_Y"]), zeta_U=t(om["zeta_U"]),
-                         lambda_d=t(om["lambda_d"]), gamma=t(om["gamma"]), G_H1=t(om["G_H1"]), G=t(om["G"]),
-                         p=t(om["p"]), frm_cnt=int(om["frm_cnt"])),
-        stft_y=t(d["stft_y"]),
-        stft_bm=t(d["stft_bm"]),
-        istft_y=t(d["istft_y"]),
-    )
+    t = lambda k: _tensor(d[k], dev)
+    return TdGscState(stft_fbf=t("stft_fbf"), mcra=_mcra_state(d["mcra"], dev), aic=_flms_state(d["aic"], dev),
+                      omlsa=_omlsa_state(d["omlsa"], dev), stft_y=t("stft_y"), stft_bm=t("stft_bm"),
+                      istft_y=t("istft_y"))
+
+
+def aec_config_from_dict(d: Mapping[str, Any]) -> AecConfig:
+    return AecConfig(**d)
+
+
+def aec_state_from_numpy(d: Mapping[str, Any], device=None) -> AecState:
+    dev = resolve_device(device)
+    t = lambda k: _tensor(d[k], dev)
+    emph = lambda e: EmphasisState(memD=_tensor(e["memD"], dev), memE=_tensor(e["memE"], dev))
+    tensors = {k: t(k) for k in AecState._fields if k not in ("cnt", "emph_mic", "emph_spk")}
+    return AecState(**tensors, cnt=int(d["cnt"]), emph_mic=emph(d["emph_mic"]), emph_spk=emph(d["emph_spk"]))
+
+
+def kws_config_from_dict(d: Mapping[str, Any]) -> DualMicKwsConfig:
+    return DualMicKwsConfig(**d)
+
+
+def kws_state_from_numpy(d: Mapping[str, Any], device=None) -> DualMicKwsState:
+    dev = resolve_device(device)
+    return DualMicKwsState(anc=_flms_state(d["anc"], dev), cleaner=_flms_state(d["cleaner"], dev),
+                           w_fifo=_tensor(d["w_fifo"], dev))
+
+
+def fdgsc_config_from_dict(d: Mapping[str, Any]) -> FdGscConfig:
+    return FdGscConfig(**d)
+
+
+def fdgsc_state_from_numpy(d: Mapping[str, Any], device=None) -> FdGscState:
+    dev = resolve_device(device)
+    t = lambda k: _tensor(d[k], dev)
+    return FdGscState(stft_x=t("stft_x"), mcra=_mcra_state(d["mcra"], dev), bm=_flms_state(d["bm"], dev),
+                      aic=_flms_state(d["aic"], dev), delay_aligned=t("delay_aligned"), delay_fbf=t("delay_fbf"),
+                      omlsa=_omlsa_state(d["omlsa"], dev), stft_y=t("stft_y"), istft_y=t("istft_y"))
+
+
+def full_stack_config_from_dict(d: Mapping[str, Any]) -> FullStackConfig:
+    return FullStackConfig(**{**d, "aec": aec_config_from_dict(d["aec"])})
+
+
+def full_stack_state_from_numpy(d: Mapping[str, Any], device=None) -> FullStackState:
+    dev = resolve_device(device)
+    return FullStackState(aec=aec_state_from_numpy(d["aec"], dev), notch=DcNotchState(mem=_tensor(d["notch"]["mem"], dev)),
+                          fir_cache=_tensor(d["fir_cache"], dev), gsc=tdgsc_state_from_numpy(d["gsc"], dev),
+                          kws=kws_state_from_numpy(d["kws"], dev))

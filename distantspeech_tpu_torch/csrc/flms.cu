@@ -16,10 +16,10 @@
 // bins are uniform lanes (the TPU kernel's Nyquist packing is not needed).
 // The TPU kernel's per-frame transforms are dots against [512, 512] DFT
 // matrices (1 MB each, more than a block's shared memory); here each one is
-// a 512-point radix-2 FFT in shared memory, a real signal as a complex FFT
-// with zero imaginary part, a half spectrum through its hermitian
-// extension.  Per frame: the C analyses of the blocking-matrix buffers and
-// the C tap spectra (one batched pass), the inverse for the output, the
+// a 512-point radix-2 FFT in shared memory (flms_lane.cuh), a real signal as
+// a complex FFT with zero imaginary part, a half spectrum through its
+// hermitian extension.  Per frame: the C analyses of the blocking-matrix
+// buffers and the C tap spectra (one batched pass), the inverse for the output, the
 // error spectrum, the C inverse gradients (constraint), their C forward
 // transforms, and the C inverse gated updates; with the postfilter also the
 // windowed analysis (batched with the error spectrum) and the synthesis
@@ -35,7 +35,7 @@
 // conflicts or at packing two real transforms into one complex FFT.
 #include <cuda_runtime.h>
 
-#include "enhance_lane.cuh"
+#include "flms_lane.cuh"
 
 // Field order and types are mirrored by _TdgscParams in ops/cuda_flms.py.
 struct TdgscParams {
@@ -49,66 +49,6 @@ struct TdgscParams {
 };
 
 namespace {
-
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ int bitrev(int n, int logN) { return (int)(__brev((unsigned)n) >> (32 - logN)); }
-
-// In-place radix-2 decimation-in-time stages over nseq contiguous length-N
-// sequences whose inputs were stored in bit-reversed order.  tw[j] =
-// e^{-2 pi i j / N}, j < N/2; the inverse conjugates them and does not
-// scale.  Ends with a barrier.
-__device__ void fft_stages(float2* a, int nseq, int N, int logN, const float2* tw, bool inverse) {
-  const int halfN = N >> 1;
-  const int total = nseq * halfN;
-  for (int s = 1; s <= logN; ++s) {
-    const int half = 1 << (s - 1);
-    for (int i = threadIdx.x; i < total; i += kThreads) {
-      const int q = i >> (logN - 1);
-      const int j = i & (halfN - 1);
-      const int pos = j & (half - 1);
-      const int i0 = (q << logN) + ((j - pos) << 1) + pos;
-      const int i1 = i0 + half;
-      float2 w = tw[pos << (logN - s)];
-      if (inverse) w.y = -w.y;
-      const float2 b = a[i1];
-      const float2 v = make_float2(b.x * w.x - b.y * w.y, b.x * w.y + b.y * w.x);
-      const float2 u = a[i0];
-      a[i0] = make_float2(u.x + v.x, u.y + v.y);
-      a[i1] = make_float2(u.x - v.x, u.y - v.y);
-    }
-    __syncthreads();
-  }
-}
-
-// Bin k (0 <= k <= N/2) of a real signal's half spectrum into a bit-reversed
-// full spectrum, with its hermitian mirror; bins 0 and N/2 drop their
-// imaginary part, as the inverse real DFT does.
-__device__ __forceinline__ void put_half(float2* a, int k, int N, int logN, float re, float im) {
-  if (k == 0 || k == (N >> 1)) {
-    a[bitrev(k, logN)] = make_float2(re, 0.f);
-    return;
-  }
-  a[bitrev(k, logN)] = make_float2(re, im);
-  a[bitrev(N - k, logN)] = make_float2(re, -im);
-}
-
-// Zero-padded [0.25, 0.5, 0.25] smoothing of row at bin k.
-__device__ __forceinline__ float smooth_zero(const float* row, int k, int F) {
-  return 0.25f * (k > 0 ? row[k - 1] : 0.f) + 0.5f * row[k] + 0.25f * (k < F - 1 ? row[k + 1] : 0.f);
-}
-
-__device__ __forceinline__ McraLane load_mcra(const float* st, int stride, int i) {
-  return McraLane{st[i], st[stride + i], st[2 * stride + i], st[3 * stride + i], st[4 * stride + i]};
-}
-
-__device__ __forceinline__ void store_mcra(float* st, int stride, int i, const McraLane& m) {
-  st[i] = m.S;
-  st[stride + i] = m.Smin;
-  st[2 * stride + i] = m.Stmp;
-  st[3 * stride + i] = m.P;
-  st[4 * stride + i] = m.Lam;
-}
 
 // Shared memory in floats; the kernel carves it in this order.
 size_t smem_floats(int C, int Lf, bool pf) {

@@ -14,10 +14,13 @@ import torch
 from distantspeech_tpu_torch import resolve_device
 from distantspeech_tpu_torch.array.geometry import ArrayGeometry
 from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, enhance_process
+from distantspeech_tpu_torch.beamform.fdgsc import FdGscConfig, fdgsc_process
 from distantspeech_tpu_torch.beamform.mvdr import mvdr_process
 from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig, tdgsc_process
-from distantspeech_tpu_torch.ops import cuda_enhance as ce, cuda_flms as cf, cuda_mvdr as cm
+from distantspeech_tpu_torch.kws import kws_process
+from distantspeech_tpu_torch.ops import cuda_aec as ca, cuda_enhance as ce, cuda_flms as cf, cuda_mvdr as cm
 from distantspeech_tpu_torch.runtime import profiling
+from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, full_stack_process
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "distantspeech_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -53,6 +56,7 @@ def test_the_card_is_the_default_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.zeros((8, 1280), np.float32)
     geom = ArrayGeometry.linear(8, 0.032)
+    x4, geom4 = x[:4], ArrayGeometry.linear(4, 0.032)
     for call in (
         lambda: resolve_device(),
         lambda: resolve_device("cuda"),
@@ -61,6 +65,14 @@ def test_the_card_is_the_default_device(monkeypatch):
         lambda: enhance_process(x[None], geom, backend="pallas"),
         lambda: mvdr_process(x, geom),
         lambda: tdgsc_process(x[None], geom, cfg=TdGscConfig(n_mics=8), backend="fused"),
+        lambda: full_stack_process(x4[None], x4[:1], geom4, cfg=FullStackConfig(n_mics=4), backend="fused"),
+        lambda: full_stack_process(x4[None], x4[:1], geom4, cfg=FullStackConfig(n_mics=4)),
+        lambda: fdgsc_process(x4[None], geom4, cfg=FdGscConfig(n_mics=4), backend="fused"),
+        lambda: fdgsc_process(x4[None], geom4, cfg=FdGscConfig(n_mics=4)),
+        lambda: kws_process(x[:2]),
+        lambda: ca.fused_aec(x4[:1], x4[None]),
+        lambda: cf.fused_kws(x[None, :2]),
+        lambda: cf.fused_fdgsc(x4[None], geom4, cfg=FdGscConfig(n_mics=4)),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -68,9 +80,9 @@ def test_the_card_is_the_default_device(monkeypatch):
 
 
 def test_cpu_tensors_leave_launches_at_zero():
-    ce.LAUNCHES.update(fused_enhance=0, fused_enhance_full=0)
-    cm.LAUNCHES.update(fused_mvdr_scan=0)
-    cf.LAUNCHES.update(fused_tdgsc=0)
+    for mod in (ca, ce, cf, cm):
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
     x = np.random.default_rng(0).standard_normal((1, 2, 128 * 6)).astype(np.float32)
     geom = ArrayGeometry.linear(2, 0.032)
     for backend in ("scan", "pallas", "fused", "mega"):
@@ -80,8 +92,15 @@ def test_cpu_tensors_leave_launches_at_zero():
         y, p, bm = tdgsc_process(x, geom, (np.pi / 2, 0.0), TdGscConfig(n_mics=2, frame_len=128, postfilter=postfilter),
                                  backend="fused", device="cpu")
         assert y.shape == (1, 128 * 6) and p.shape == (1, 6, 129) and bool(torch.isfinite(y).all())
-    assert ce.LAUNCHES == {"fused_enhance": 0, "fused_enhance_full": 0}
-    assert cm.LAUNCHES == {"fused_mvdr_scan": 0} and cf.LAUNCHES == {"fused_tdgsc": 0}
+    x4 = np.random.default_rng(1).standard_normal((1, 4, 256 * 6)).astype(np.float32)
+    geom4 = ArrayGeometry.linear(4, 0.032)
+    y, kws, p = full_stack_process(x4, x4[:, 0], geom4, (np.pi / 2, 0.0), FullStackConfig(n_mics=4), backend="fused",
+                                   device="cpu")
+    assert y.shape == kws.shape == (1, 256 * 6) and p.shape == (1, 6, 257) and bool(torch.isfinite(y).all())
+    y, p, bm = fdgsc_process(x4, geom4, (np.pi / 2, 0.0), FdGscConfig(n_mics=4), backend="fused", device="cpu")
+    assert y.shape == (1, 256 * 6) and bm.shape == (1, 4, 256 * 6) and bool(torch.isfinite(y).all())
+    assert ce.LAUNCHES == {"fused_enhance": 0, "fused_enhance_full": 0} and cm.LAUNCHES == {"fused_mvdr_scan": 0}
+    assert cf.LAUNCHES == {"fused_tdgsc": 0, "fused_kws": 0, "fused_fdgsc": 0} and ca.LAUNCHES == {"fused_aec": 0}
 
 
 def test_timing_needs_a_card(monkeypatch):
