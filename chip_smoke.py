@@ -834,18 +834,27 @@ def smoke_slice_c(dev, card: str, B: int, seconds: int) -> list:
         return int(((p[..., 32:128].mean(-1) > 0.8) != (p_want[..., 32:128].mean(-1) > 0.8)).sum())
 
     def hold_aec(farp, xp, where):
-        """K7 against its plain version; returns (out, max abs err, plain ms)."""
+        """K7 against its plain version; returns (out, max abs err, plain ms).
+        Each (utterance, mic) row is its own recursion: the rows whose
+        transfer decisions all agree with the plain version's are held at the
+        tight gate, only the others at the decision-flip gate."""
         (want, uw), plain_ms = timed_once(ca.aec_frames_plain, farp, xp, acfg, True)
         got, ug = ca.aec_frames(farp, xp, acfg, decisions=True)
         torch.cuda.synchronize()
         # the transfer logic thresholds raw energy sums (speex's Davg / Dvar
         # tests): where a last-bit difference between an FFT and a dense DFT
-        # flips a decision, bench.py's decision-flip gate applies
-        tol = gate_flips(f"fused_aec {where}", int((ug != uw).sum()), uw.numel(), "transfer decisions")
-        rel, mx = rel_err(got, want)
+        # flips a decision, that row's output may part from the plain one's
+        flipped = (ug != uw).any(-1)  # [B, M]
+        print(f"fused_aec {where}: {int((ug != uw).sum())} of {uw.numel()} transfer decisions differ from the plain "
+              f"version's, in {int(flipped.sum())} of {flipped.numel()} (utterance, mic) rows", flush=True)
+        gap = (got.double() - want.double()).abs().amax(-1)  # [B, M]
+        scale = float(want.double().abs().max())
+        rel_same = float(gap[~flipped].max()) / scale if bool((~flipped).any()) else 0.0
+        rel_flip = float(gap[flipped].max()) / scale if bool(flipped.any()) else 0.0
         check(bool(torch.isfinite(got).all()), f"fused_aec {where}: finite {tuple(got.shape)}")
-        check(rel < tol, f"fused_aec {where} vs plain: rel {rel:.3e} (max abs {mx:.3e}) < {tol:g}")
-        return got, mx, plain_ms
+        check(rel_same < TIGHT, f"fused_aec {where} vs plain, rows with no flipped decision: rel {rel_same:.3e} < {TIGHT:g}")
+        check(rel_flip < FLIP, f"fused_aec {where} vs plain, rows with a flipped decision: rel {rel_flip:.3e} < {FLIP:g}")
+        return got, float(gap.max()), plain_ms
 
     def hold_kws(x0, d, where):
         want, plain_ms = timed_once(cf.kws_frames_plain, x0, d, kcfg)
@@ -942,17 +951,23 @@ def smoke_slice_c(dev, card: str, B: int, seconds: int) -> list:
           f"(B={B}, M={M}, {seconds} s); plain K7 {aec_plain_ms:.1f} ms, K6 {kws_plain_ms:.1f} ms {tag}", flush=True)
 
     # bounds: each transform at a real FFT's 2.5 N log2 N + N; the elementwise
-    # work of a frame counted per element on the plain version
+    # work of a frame counted per element on the plain version.  K7's mics
+    # share one far end: its analysis and power P are counted once per
+    # utterance-frame (the plain version at M = 1 and M = 2 separates the
+    # far end's work from a mic's)
     N = 2 * fcfg.frame_len
     fft_ops = 2.5 * N * np.log2(N) + N
     L = fcfg.frame_len
-    f1, x1 = torch.as_tensor(far_np[:1, : 3 * L]).double(), torch.as_tensor(x_np[:1, :1, : 3 * L]).double()
-    k7_ops = frame_ops(lambda n: ca.aec_frames_plain(f1[:, : n * L], x1[..., : n * L], acfg), 3)
-    k6_ops = frame_ops(lambda n: cf.kws_frames_plain(x1[:, 0, : n * L], f1[:, : n * L], kcfg), 3)
+    f1, x2 = torch.as_tensor(far_np[:1, : 3 * L]).double(), torch.as_tensor(x_np[:1, :2, : 3 * L]).double()
+    k7_m1, k7_m2 = (frame_ops(lambda n: ca.aec_frames_plain(f1[:, : n * L], x2[:, :m, : n * L], acfg), 3) for m in (1, 2))
+    k7_mic = k7_m2 - k7_m1
+    k7_far = k7_m1 - k7_mic
+    print(f"fused_aec elementwise ops per frame: {k7_far} for the far end, {k7_mic} for each mic", flush=True)
+    k6_ops = frame_ops(lambda n: cf.kws_frames_plain(x2[:, 0, : n * L], f1[:, : n * L], kcfg), 3)
     recs = []
     for name, src, line, nfft, elem, nbytes, err, ms_k, plain_ms in (
-        ("fused_aec", "aec.cu", "pallas_aec.py:47", B * M * T * (4 + 2 * acfg.num_block), B * M * T * k7_ops,
-         4 * (farp.numel() + 2 * xp.numel()), aec_err, ms["K7 fused_aec"], aec_plain_ms),
+        ("fused_aec", "aec.cu", "pallas_aec.py:47", B * T * (1 + M * (3 + 2 * acfg.num_block)),
+         B * T * (k7_far + M * k7_mic), 4 * (farp.numel() + 2 * xp.numel()), aec_err, ms["K7 fused_aec"], aec_plain_ms),
         ("fused_kws", "kws.cu", "pallas_flms.py:907", B * T * 7, B * T * k6_ops,
          4 * 3 * x0.numel(), kws_err, ms["K6 fused_kws"], kws_plain_ms),
     ):

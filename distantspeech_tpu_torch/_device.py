@@ -21,9 +21,9 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def as_device_tensor(x, device=None) -> torch.Tensor:
-    """A kernel wrapper's input: a tensor stays where it is unless ``device``
-    is given; anything else goes to ``resolve_device(device)``."""
-    if isinstance(x, torch.Tensor) and device is None:
+def wrapper_input(x) -> torch.Tensor:
+    """A kernel wrapper's input: a tensor stays where it is; anything else
+    goes to ``resolve_device()``, the card."""
+    if isinstance(x, torch.Tensor):
         return x
-    return torch.as_tensor(x, device=resolve_device(device))
+    return torch.as_tensor(x, device=resolve_device())

@@ -26,10 +26,12 @@
 // of shuffles combines the threads with the powers 0.98^k from the host,
 // and the warps' totals chain through shared memory.
 //
-// What bounds it on an H100 (B = 128, M = 4, 4 s): operations, 8
-// transforms per (utterance, mic) and frame; more than those, the latency
-// of ~50 barriers per frame.  512 blocks of 8 warps fill the 132 SMs about
-// four deep.
+// What bounds it on an H100 (B = 128, M = 4, 4 s): operations.  The
+// function needs 1 + M (3 + 2 NB) transforms per utterance-frame (the far
+// end once); the kernel runs 4 + 2 NB per (utterance, mic)-frame, so the
+// far end's M - 1 repeated analyses are cost above the bound.  More than
+// the transforms, the latency of ~50 barriers per frame.  512 blocks of 8
+// warps fill the 132 SMs about four deep.
 #include <cuda_runtime.h>
 
 #include "flms_lane.cuh"

@@ -34,7 +34,7 @@ import functools
 import numpy as np
 import torch
 
-from distantspeech_tpu_torch._device import as_device_tensor
+from distantspeech_tpu_torch._device import wrapper_input
 from distantspeech_tpu_torch.adaptive.feature import emphasis_init, pre_emphasis
 from distantspeech_tpu_torch.ops import _build
 from distantspeech_tpu_torch.ops.cuda_flms import _pack, _twiddles, _unpack, plain_dft_packed
@@ -280,12 +280,12 @@ def aec_frames(farp: torch.Tensor, xp: torch.Tensor, cfg, decisions: bool = Fals
     return (out, upd > 0.5) if decisions else out
 
 
-def fused_aec(far, x, cfg=None, device=None):
+def fused_aec(far, x, cfg=None):
     """Fused AEC over whole utterances: far [B, S] shared far end, x
     [B, M, S] mics -> echo-free [B, M, S'] with S' = T * block_len
     (``aec_step`` semantics, batched over the mic axis as in
     ``runtime.full_stack``).  Tensors stay on their device; other inputs go
-    to ``device`` (the card by default)."""
+    to the card."""
     cfg = _default_cfg() if cfg is None else cfg
-    farp, xp = _prepare(as_device_tensor(far, device), as_device_tensor(x, device), cfg)
+    farp, xp = _prepare(wrapper_input(far), wrapper_input(x), cfg)
     return aec_frames(farp.contiguous(), xp.contiguous(), cfg)

@@ -56,7 +56,7 @@ import functools
 import numpy as np
 import torch
 
-from distantspeech_tpu_torch._device import as_device_tensor
+from distantspeech_tpu_torch._device import wrapper_input
 from distantspeech_tpu_torch.adaptive.feature import dc_notch, dc_notch_init
 from distantspeech_tpu_torch.array.alignment import time_alignment_filters
 from distantspeech_tpu_torch.noise.mcra import _freq_smooth
@@ -380,12 +380,13 @@ def fused_tdgsc(x, geometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0), cfg=None):
     """Fused TDGSC (``cfg.postfilter`` selects the postfilter variant):
     x [B, M, S] -> (out [B, S'], p [B, T, F], bm [B, M-1, S']), like
     ``beamform.tdgsc.tdgsc_process``.  The front end runs as plain PyTorch,
-    the frame loop in ``tdgsc_frames``."""
+    the frame loop in ``tdgsc_frames``.  A tensor stays on its device;
+    other inputs go to the card."""
     if cfg is None:
         from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig
 
         cfg = TdGscConfig()
-    x = _check(torch.as_tensor(x), cfg)
+    x = _check(wrapper_input(x), cfg)
     fbf, bm = front_end(x, geometry, angle_rad, cfg)
     bm = bm.contiguous()
     d, yp, up = (a.contiguous() if a is not None else None for a in _kernel_inputs(fbf, bm, cfg))
@@ -506,13 +507,13 @@ def kws_frames(x0: torch.Tensor, d: torch.Tensor, cfg) -> torch.Tensor:
     return out
 
 
-def fused_kws(x, cfg=None, device=None) -> torch.Tensor:
+def fused_kws(x, cfg=None) -> torch.Tensor:
     """Fused dual-mic KWS cleaner: x [B, 2, S] -> cleaned [B, S'], like
     ``kws.dual_mic.kws_process``.  x may be a strided view (mics 0/1 of a
     wider array): the kernel's inputs are contiguous copies.  A tensor stays
-    on its device; other inputs go to ``device`` (the card by default)."""
+    on its device; other inputs go to the card."""
     cfg = _kws_default() if cfg is None else cfg
-    x0, d = _kws_inputs(_kws_check(as_device_tensor(x, device), cfg), cfg)
+    x0, d = _kws_inputs(_kws_check(wrapper_input(x), cfg), cfg)
     return kws_frames(x0.contiguous(), d.contiguous(), cfg)
 
 
@@ -707,13 +708,11 @@ def fdgsc_frames(fbf, dbm, daic, yp, cfg):
     return out, p, bm
 
 
-def fused_fdgsc(x, geometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0), cfg=None, dc_notch_input: bool = True,
-                device=None):
+def fused_fdgsc(x, geometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0), cfg=None, dc_notch_input: bool = True):
     """Fused FDGSC (the postfilter=False core): x [B, M, S] -> (out [B, S'],
     p [B, T, F], bm [B, M, S']), like ``beamform.fdgsc.fdgsc_process``.  The
     front end runs as plain PyTorch, the frame loop in ``fdgsc_frames``.  A
-    tensor stays on its device; other inputs go to ``device`` (the card by
-    default)."""
+    tensor stays on its device; other inputs go to the card."""
     cfg = _fdgsc_default() if cfg is None else cfg
-    ins = fdgsc_front_end(_fdgsc_check(as_device_tensor(x, device), cfg), geometry, angle_rad, cfg, dc_notch_input)
+    ins = fdgsc_front_end(_fdgsc_check(wrapper_input(x), cfg), geometry, angle_rad, cfg, dc_notch_input)
     return fdgsc_frames(*(a.contiguous() for a in ins), cfg)

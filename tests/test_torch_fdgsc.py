@@ -117,6 +117,23 @@ def test_fused_plain_matches_pallas_interpret(fused_case):
     assert _rel(bm2, bm1) < 1e-5
 
 
+def test_fused_plain_matches_pallas_interpret_with_pinning():
+    """With a short MCRA window p moves within 20 frames, so the kernel's
+    low-bin pinning and its p-driven AIC step meet the JAX kernel: float32,
+    B=8 x 4 x 20 frames on the burst scene, where the JAX kernel stays within
+    these tolerances of float64."""
+    x = _scene(B, T * 256, 3)
+    want = j_fused(jnp.asarray(x), JGeometry.linear(M, 0.032), ANG, _short_mcra(jf.FdGscConfig)(n_mics=M), interpret=True)
+    got = cf.fused_fdgsc_plain(torch.as_tensor(x), TGeometry.linear(M, 0.032), ANG, _short_mcra(tf.FdGscConfig)(n_mics=M))
+    (o1, p1, bm1), (o2, p2, bm2) = (np.asarray(w) for w in want), (g.numpy() for g in got)
+    assert _rel(o2, o1) < 1e-5
+    np.testing.assert_allclose(p2, p1, atol=1e-6)
+    assert _rel(bm2, bm1) < 1e-5
+    pinned = p2[..., 32:128].mean(-1) > 0.8
+    assert 0 < int(pinned.sum()) < pinned.size
+    assert bool((p2[..., :32][pinned] >= 0.8).all()) and bool((p1[..., :32][pinned] >= 0.8).all())
+
+
 def test_fused_plain_float32_on_a_burst():
     """On the burst scene the float32 plain version stays within 1e-5 of its
     float64 result (the JAX kernel in interpret mode strays 7.6e-4 from it

@@ -70,6 +70,7 @@ def test_the_card_is_the_default_device(monkeypatch):
         lambda: fdgsc_process(x4[None], geom4, cfg=FdGscConfig(n_mics=4), backend="fused"),
         lambda: fdgsc_process(x4[None], geom4, cfg=FdGscConfig(n_mics=4)),
         lambda: kws_process(x[:2]),
+        lambda: cf.fused_tdgsc(x4[None], geom4, cfg=TdGscConfig(n_mics=4)),
         lambda: ca.fused_aec(x4[:1], x4[None]),
         lambda: cf.fused_kws(x[None, :2]),
         lambda: cf.fused_fdgsc(x4[None], geom4, cfg=FdGscConfig(n_mics=4)),
