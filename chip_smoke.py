@@ -63,7 +63,27 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    ArrayGeometry.linear(4, 0.032), (pi/2, 0), FdGscConfig(n_mics=4),
    backend="fused")`` on B=128 x 4 x 4 s (one K8 launch, finite, output SNR
    above mic 0's), held to the plain version at that size; timings;
-12. the ``kernels`` JSON line, the card line, and the final JSON line.
+12. kernel K9 (``fused_subband_gsc``, ``csrc/sgsc.cu``) against its plain
+   version at B=8 x 4 mics x 1 s with the default config, the AIC guards
+   and a short MCRA window (L=3): out and bm < 1e-3 of max, p < 2e-3
+   absolute in every utterance with no flipped decision (the xi < 0 repair,
+   MCRA's S/Smin > delta_s), out and bm < 2e-2 in the others, the flips
+   printed; the ``fused`` path against its float64 ``scan`` at B=2 x 1 s
+   (< 2e-2); the subband GSC (B5) at full size through
+   ``subband_gsc_process(x, ArrayGeometry.linear(4, 0.032), (pi/2, 0),
+   SubbandGscConfig(n_mics=4), backend="fused")`` on B=128 x 4 x 4 s (one
+   K9 launch, finite, output SNR above mic 0's), held to the plain version
+   again at that size as at the gate size, with the kernel's and the float32
+   plain version's gaps to the float64 plain version printed; timings;
+13. kernel K10 (``fused_srp_spectrum``, ``csrc/srp.cu``) against its plain
+   version and the einsum path at B=2 x 8 mics x 1 s and at full size
+   (< 1e-4 of max; the same angle picked over 0..180 degrees wherever the
+   top two differ by more than 1e-4 of max); SRP-PHAT (B6) through ``srp_process(x,
+   ArrayGeometry.linear(8, 0.032), SrpConfig(), backend="fused")`` on B=8 x
+   8 x 4 s of a source reaching mic m m samples late (one K10 launch; the
+   summed spectrum's pick within 3 degrees of arccos(c / (0.032 fs)) or its
+   mirror); timings;
+14. the ``kernels`` JSON line, the card line, and the final JSON line.
 """
 
 from __future__ import annotations
@@ -82,6 +102,7 @@ H100_FP32_FLOPS = 67e12  # NVIDIA H100 SXM data sheet, float32 outside the tenso
 H100_HBM_BYTES = 3.35e12  # bytes/s
 TIGHT, FLIP = 1e-3, 2e-2  # kernel gates (bench.py's two gates)
 K1_GATE = 1e-4  # K1 and its plain version see the same gate: no decision can flip
+SRP_GATE = 1e-4  # K10: a sum of magnitudes, no decision inside
 
 
 def card_line() -> str:
@@ -271,6 +292,8 @@ def main() -> int:
     kernels += smoke_k1(dev, card, B=64, seconds=4)
     kernels += smoke_k5(dev, card, B=128, seconds=4)
     kernels += smoke_slice_c(dev, card, B=128, seconds=4)
+    kernels += smoke_k9(dev, card, B=128, seconds=4)
+    kernels += smoke_k10(dev, card, B=8, seconds=4)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -764,19 +787,21 @@ def erle_db(x0, e0, env, start=FS, margin=512):
                           for b in range(x0.shape[0])]))
 
 
+def kernel_modules():
+    from distantspeech_tpu_torch.ops import cuda_aec, cuda_enhance, cuda_flms, cuda_mvdr, cuda_sgsc, cuda_srp
+
+    return cuda_aec, cuda_enhance, cuda_flms, cuda_mvdr, cuda_sgsc, cuda_srp
+
+
 def reset_launches():
     """Every kernel's launch count to 0."""
-    from distantspeech_tpu_torch.ops import cuda_aec, cuda_enhance, cuda_flms, cuda_mvdr
-
-    for mod in (cuda_aec, cuda_enhance, cuda_flms, cuda_mvdr):
+    for mod in kernel_modules():
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
 
 
 def launch_counts() -> dict:
-    from distantspeech_tpu_torch.ops import cuda_aec, cuda_enhance, cuda_flms, cuda_mvdr
-
-    return {k: v for mod in (cuda_aec, cuda_enhance, cuda_flms, cuda_mvdr) for k, v in mod.LAUNCHES.items()}
+    return {k: v for mod in kernel_modules() for k, v in mod.LAUNCHES.items()}
 
 
 def frame_ops(run, T):
@@ -1015,6 +1040,288 @@ def smoke_slice_c(dev, card: str, B: int, seconds: int) -> list:
                  "library_ms": None})
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return recs
+
+
+def short_mcra_sgsc(base):
+    """``base`` (a SubbandGscConfig class) with the McSpp CDR's MCRA window
+    cut to L=3: MCRA holds its p at p_min for the first 2L frames (130 by
+    default), so only a short window lets the CDR-driven q move within 1 s."""
+    import dataclasses
+
+    from distantspeech_tpu_torch.noise.mccdr import McCdrConfig
+    from distantspeech_tpu_torch.noise.mcspp import McSppConfig
+
+    class Cdr(McCdrConfig):
+        @property
+        def mcra(self):
+            return dataclasses.replace(super().mcra, L=3)
+
+    class Spp(McSppConfig):
+        @property
+        def mccdr(self):
+            return Cdr(nfft=self.nfft, n_channels=min(4, self.n_channels))
+
+    class Short(base):
+        @property
+        def spp(self):
+            return Spp(nfft=self.frame_len * 2, n_channels=self.n_mics)
+
+    return Short
+
+
+def smoke_k9(dev, card: str, B: int, seconds: int) -> list:
+    """Phase 12: kernel K9 at the gate size and on the subband GSC path (B5)."""
+    import torch
+
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+    from distantspeech_tpu_torch.beamform.subband_gsc import SubbandGscConfig, subband_gsc_process
+    from distantspeech_tpu_torch.ops import cuda_sgsc as cs
+    from distantspeech_tpu_torch.runtime.profiling import benchmark
+
+    tag = f"[{card}]"
+    t_phase = time.perf_counter()
+    M = 4
+    geom = ArrayGeometry.linear(M, 0.032)
+    look = (np.pi / 2, 0.0)
+    cfg = SubbandGscConfig(n_mics=M)
+    cfgs = {"default": cfg, "guards": SubbandGscConfig(n_mics=M, aic_warmup_frames=4, aic_freeze_thresh=0.5),
+            "short MCRA": short_mcra_sgsc(SubbandGscConfig)(n_mics=M)}
+
+    def inputs(x, c):
+        return tuple(a.contiguous() for a in cs.front_end(cs._check(x, c), geom, look, c))
+
+    def hold(got, want, where, want64=None):
+        """K9 against its plain version, both with their decisions: every
+        utterance whose decisions (the xi < 0 repair, MCRA's S/Smin >
+        delta_s) all agree at the tight gate, out and bm < 1e-3 of max and
+        p < 2e-3 absolute; the others, where a flipped threshold may part the
+        recursions, out and bm at the decision-flip gate.  With ``want64``,
+        the plain version in float64, also prints how far the kernel and the
+        float32 plain version each lie from it.  Returns the max abs error of
+        out against the float32 plain version."""
+        (o, p, bm, dec), (wo, wp, wb, wd) = got, want
+        flipped = (dec != wd).flatten(1).any(-1)  # [B]
+        print(f"fused_subband_gsc {where}: {int((dec != wd).sum())} of {wd.numel()} decisions differ from the plain "
+              f"version's, in {int(flipped.sum())} of {flipped.numel()} utterances; the plain version took "
+              f"{int((wd & cs.REPAIR).sum())} repairs", flush=True)
+        check(all(bool(torch.isfinite(a).all()) for a in (o, p, bm)), f"fused_subband_gsc {where}: finite")
+        gap = lambda a, b: (a.double() - b.double()).flatten(1).abs().amax(-1)  # [B]
+        scale = (float(wo.double().abs().max()), float(wb.double().abs().max()), 1.0)
+        tight = (TIGHT, TIGHT, 2e-3)
+        names = ("out rel", "bm rel", "p abs")
+        g32 = [gap(a, b) / s for a, b, s in zip((o, bm, p), (wo, wb, wp), scale)]
+        rows = ~flipped
+        if bool(flipped.any()):
+            mx = [float(g[flipped].max()) for g in g32]
+            check(mx[0] < FLIP and mx[1] < FLIP, f"fused_subband_gsc {where} vs plain, utterances with a flipped "
+                                                 f"decision: out rel {mx[0]:.3e}, bm rel {mx[1]:.3e} < {FLIP:g}; "
+                                                 f"p max abs {mx[2]:.3e}")
+        if not bool(rows.any()):
+            return float(gap(o, wo).max())
+        mx = [float(g[rows].max()) for g in g32]
+        msg = ", ".join(f"{n} {m:.3e}" for n, m in zip(names, mx))
+        check(all(m < t for m, t in zip(mx, tight)), f"fused_subband_gsc {where} vs plain, utterances with no "
+                                                     f"flipped decision: {msg} (< 1e-3, 1e-3, 2e-3)")
+        if want64 is not None:
+            o64, p64, b64 = (a.double() for a in want64)
+            s64 = (float(o64.abs().max()), float(b64.abs().max()), 1.0)
+            far = [[float(gap(a, b).max()) / s for a, b, s in zip(side, (o64, b64, p64), s64)]
+                   for side in ((o, bm, p), (wo, wb, wp))]
+            print(f"fused_subband_gsc {where} vs the float64 plain version (out rel, bm rel, p abs): kernel "
+                  f"{far[0][0]:.3e}, {far[0][1]:.3e}, {far[0][2]:.3e}; float32 plain {far[1][0]:.3e}, "
+                  f"{far[1][1]:.3e}, {far[1][2]:.3e}", flush=True)
+        return float(gap(o, wo).max())
+
+    # ---- the gate size: B=8 x 4 x 1 s
+    xg = torch.as_tensor(scene(8, M, FS, seed=10)[0], device=dev)
+    for cname, c in cfgs.items():
+        ins = inputs(xg, c)
+        got, want = cs.subband_gsc_frames(*ins, c, decisions=True), cs.subband_gsc_frames_plain(*ins, c, decisions=True)
+        torch.cuda.synchronize()
+        hold(got, want, f"{cname} (B=8, 1 s)")
+        p = want[1]
+        print(f"fused_subband_gsc {cname}: plain p in (0.05, 0.95) on {int(((p > 0.05) & (p < 0.95)).sum())} of "
+              f"{p.numel()} lane-frames", flush=True)
+    x2 = xg[:2].contiguous()
+    got = subband_gsc_process(x2, geom, look, cfg, backend="fused")
+    ref = subband_gsc_process(x2.double(), geom, look, cfg, backend="scan", device=dev)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("out", "p", "bm"), got, ref):
+        rel, mx = rel_err(g, r)
+        if name == "p":
+            print(f"subband_gsc_process fused vs the float64 scan path (B=2, 1 s): p max abs {mx:.3e}", flush=True)
+        else:
+            check(rel < FLIP, f"subband_gsc_process fused vs the float64 scan path (B=2, 1 s), {name}: rel {rel:.3e} < {FLIP:g}")
+
+    # ---- B5: the subband GSC at full size, through subband_gsc_process
+    S = seconds * FS
+    xs, env = scene(B, M, S, seed=11)
+    x = torch.as_tensor(xs, device=dev)
+    reset_launches()
+    outs = subband_gsc_process(x, geom, look, cfg, backend="fused")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["fused_subband_gsc"] == 1 and sum(counts.values()) == 1,
+          f"subband_gsc_process fused launched K9 once: {counts}")
+    o, p, bm = outs
+    L = cfg.frame_len
+    T = S // L
+    Sp = T * L
+    check(tuple(o.shape) == (B, Sp) and tuple(p.shape) == (B, T, cfg.half_bin) and tuple(bm.shape) == (B, M, Sp)
+          and all(bool(torch.isfinite(a).all()) for a in outs),
+          f"subband_gsc_process fused: finite out {tuple(o.shape)}, p {tuple(p.shape)}, bm {tuple(bm.shape)}")
+    snr_in = segment_snr_db(xs[:, 0], env, 0)
+    # the path's delay: the alignment filters' 40 samples, the AIC's desired
+    # signal (the FBF one frame late) and the STFT round trip's one frame
+    snr_out = segment_snr_db(o.cpu().numpy(), env[:, :Sp], 40 + 2 * L)
+    check(snr_out > snr_in, f"subband_gsc_process fused: output SNR {snr_out:.2f} dB > mic 0's {snr_in:.2f} dB")
+    ins = inputs(x, cfg)
+    want, plain_ms = timed_once(cs.subband_gsc_frames_plain, *ins, cfg, True)
+    got = cs.subband_gsc_frames(*ins, cfg, decisions=True)
+    want64 = cs.subband_gsc_frames_plain(*(a.double() for a in ins), cfg)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got[:3], outs)), "K9 with its decisions returns the main path's outputs")
+    err = hold(got, want, f"(B={B}, {seconds} s)", want64)
+    n_repair = int((got[3] & cs.REPAIR).sum())
+
+    # ---- times
+    ms = benchmark(cs.subband_gsc_frames, *ins, cfg)["per_call_s"] * 1e3
+    fe_ms = benchmark(inputs, x, cfg)["per_call_s"] * 1e3
+    t_path = benchmark(subband_gsc_process, x, geom, look, cfg, "fused")["per_call_s"]
+    print(f"fused_subband_gsc: kernel {ms:.3f} ms/call; front end (notch, alignment FIR, FBF, Sf) {fe_ms:.3f} ms; "
+          f"subband_gsc_process fused {t_path * 1e3:.3f} ms/call, {B * S / FS / t_path:.0f} audio-s/s (B={B}, M={M}, "
+          f"{seconds} s); plain {plain_ms:.1f} ms {tag}", flush=True)
+
+    # ---- bound: 14 transforms per utterance-frame, and the elementwise work
+    # of the plain frame counted per element: one inverse a lane-frame, and
+    # the repair (an inverse and its trace) only on the lane-frames that took it
+    N = 2 * L
+    F = cfg.half_bin
+    c1 = tuple(a[:1].double().cpu() for a in ins)
+    n = 12  # a frame past the warm start and the repair loading
+    run = lambda k, dec=False: cs.subband_gsc_frames_plain(c1[0][..., : k * L], c1[1][:, :k], cfg, dec)
+    f_ops = frame_ops(run, n)  # frame n - 1 of utterance 0, its own repairs included
+    r_n = int((run(n, True)[3][0, n - 1] & cs.REPAIR).sum())
+    hd, ho, hf = (torch.ones((F,) + shape, dtype=torch.float64) for shape in ((4,), (6,), (4, 4)))
+    rep_ops = counted(cs._repair, hd, ho, ho, hf, hf, 1.0, per_element=True) // F  # one lane's repair
+    elem = B * T * (f_ops - r_n * rep_ops) + n_repair * rep_ops
+    fft_ops = B * T * 14 * (2.5 * N * np.log2(N) + N)
+    nbytes = 4 * (sum(a.numel() for a in ins) + o.numel() + p.numel() + bm.numel()) + p.numel()
+    b_ms, by = bound(nbytes, fft_ops + elem)
+    print(f"bound fused_subband_gsc: {b_ms:.4f} ms by {by} ({nbytes} B; {fft_ops:.4g} transform + {elem:.4g} "
+          f"elementwise ops; {f_ops} a frame with {r_n} repairs, {rep_ops} a lane's repair, {n_repair} repairs)", flush=True)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return [{"name": "fused_subband_gsc", "route": "cuda", "source": "distantspeech_tpu_torch/csrc/sgsc.cu",
+             "replaces": "distantspeech_tpu/ops/pallas_sgsc.py:155", "launches": counts["fused_subband_gsc"],
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None}]
+
+
+def doa_scene(B, M, S, seed):
+    """A white-noise source that reaches mic m m samples after mic 0, plus
+    independent noise per mic at -20 dB.  Returns x [B, M, S] float32."""
+    rng = np.random.default_rng(seed)
+    s = rng.standard_normal((B, S + M))
+    x = np.stack([s[:, M - m : M - m + S] for m in range(M)], axis=1)
+    return (x + 0.1 * rng.standard_normal((B, M, S))).astype(np.float32)
+
+
+def smoke_k10(dev, card: str, B: int, seconds: int) -> list:
+    """Phase 13: kernel K10 at the gate size and on the SRP-PHAT path (B6)."""
+    import torch
+
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+    from distantspeech_tpu_torch.doa.srp import SrpConfig, srp_angle_spectrum, srp_process, srp_steering_grid
+    from distantspeech_tpu_torch.ops import cuda_srp as cr
+    from distantspeech_tpu_torch.runtime.profiling import benchmark
+    from distantspeech_tpu_torch.transform import analysis
+
+    tag = f"[{card}]"
+    t_phase = time.perf_counter()
+    M = 8
+    geom = ArrayGeometry.linear(M, 0.032)
+    cfg = SrpConfig()
+    grid = torch.as_tensor(srp_steering_grid(cfg, geom), device=dev)
+    G = cr.pack_grid(grid, dev)
+
+    def spectra(x):
+        return torch.movedim(torch.movedim(analysis(x, cfg.stft), -3, -1), -3, 0)  # [T, B, F, M]
+
+    def hold(Y, where):
+        """K10 against its plain version and the einsum path; returns (rows,
+        spectrum, max abs error, plain ms)."""
+        y2 = cr.whitened_rows(Y).contiguous()
+        got = cr.srp_spectrum(y2, G)
+        want, plain_ms = timed_once(cr.srp_spectrum_plain, y2, G)
+        lib = srp_angle_spectrum(Y, grid).reshape(-1, grid.shape[0])
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"fused_srp_spectrum {where}: finite {tuple(got.shape)}")
+        for name, ref in (("its plain version", want), ("the einsum path", lib)):
+            rel, mx = rel_err(got, ref)
+            # the linear array cannot tell a from 360 - a (their steering
+            # vectors are equal), so picks are compared over 0..180 degrees
+            half = ref[:, :181]
+            top2 = half.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 1e-4 * float(ref.abs().max())
+            same = bool((got[:, :181].argmax(-1) == half.argmax(-1))[clear].all())
+            check(rel < SRP_GATE and same, f"fused_srp_spectrum {where} vs {name}: rel {rel:.3e} (max abs {mx:.3e}) "
+                                           f"< {SRP_GATE:g}; the same pick (0..180 deg) in all {int(clear.sum())} of "
+                                           f"{clear.numel()} rows whose top two differ by more than 1e-4 of max")
+            if name == "its plain version":
+                err = mx
+        return y2, got, err, plain_ms
+
+    # ---- the gate size: B=2 x 8 x 1 s of white noise
+    hold(spectra(torch.as_tensor(np.random.default_rng(12).standard_normal((2, M, FS)).astype(np.float32),
+                                 device=dev)), "(B=2, 1 s)")
+
+    # ---- B6: SRP-PHAT at full size, through srp_process
+    S = seconds * FS
+    x = torch.as_tensor(doa_scene(B, M, S, seed=13), device=dev)
+    reset_launches()
+    spec, p = srp_process(x, geom, cfg, backend="fused")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["fused_srp_spectrum"] == 1 and sum(counts.values()) == 1, f"srp_process fused launched K10 once: {counts}")
+    T = S // cfg.stft.hop
+    check(tuple(spec.shape) == (B, T, 360) and tuple(p.shape) == (B, T, cfg.stft.half_bin)
+          and bool(torch.isfinite(spec).all()) and bool(torch.isfinite(p).all()),
+          f"srp_process fused: finite spectrum {tuple(spec.shape)}, p {tuple(p.shape)}")
+    true_deg = float(np.degrees(np.arccos(geom.c / (0.032 * geom.fs))))
+    pick = int(spec.sum(dim=(0, 1)).argmax())
+    off = min(abs(pick - a) for a in (true_deg, 360.0 - true_deg))
+    check(off <= 3.0, f"srp_process fused: the summed spectrum picks {pick} deg, {off:.2f} deg from "
+                      f"{true_deg:.2f} deg or its mirror (<= 3)")
+    Y = spectra(x)
+    y2, got, err, plain_ms = hold(Y, f"(B={B}, {seconds} s)")
+    check(torch.equal(got.reshape(T, B, -1).movedim(0, 1), spec), "K10 on the main path's rows returns its spectrum")
+
+    # ---- times.  The library call is the einsum path on the same whitened
+    # spectrum (phat=False): the function the kernel computes on y2.  Both
+    # again with the whitening, as srp_process calls them.
+    ms = benchmark(cr.srp_spectrum, y2, G)["per_call_s"] * 1e3
+    lib_ms = benchmark(srp_angle_spectrum, cr.phat_whiten(Y), grid, False)["per_call_s"] * 1e3
+    fused_ms = benchmark(cr.fused_srp_spectrum, Y, grid.cpu().numpy())["per_call_s"] * 1e3
+    einsum_ms = benchmark(srp_angle_spectrum, Y, grid)["per_call_s"] * 1e3
+    t_path = benchmark(srp_process, x, geom, cfg, True, "fused", iters=4, warmup=1)["per_call_s"]
+    print(f"fused_srp_spectrum: kernel {ms:.3f} ms/call, the einsum path {lib_ms:.3f} ms on the same whitened "
+          f"spectrum; with the whitening (and the grid packing) fused_srp_spectrum {fused_ms:.3f} ms, the einsum "
+          f"path {einsum_ms:.3f} ms; srp_process fused {t_path * 1e3:.3f} ms/call, {B * S / FS / t_path:.0f} "
+          f"audio-s/s (B={B}, M={M}, {seconds} s; its MCRA track is a host loop of {T} frames); plain "
+          f"{plain_ms:.1f} ms {tag}", flush=True)
+
+    # ---- bound: per (row, bin, angle) 2M complex multiply-adds as 8M real
+    # operations, then the magnitude and the sum: 8M + 5
+    R, F, _ = y2.shape
+    Theta = G.shape[-1] // 2
+    nops = R * F * Theta * (8 * M + 5)
+    nbytes = 4 * (y2.numel() + G.numel() + R * Theta)
+    b_ms, by = bound(nbytes, nops)
+    print(f"bound fused_srp_spectrum: {b_ms:.4f} ms by {by} ({nbytes} B; {nops:.4g} ops)", flush=True)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return [{"name": "fused_srp_spectrum", "route": "cuda", "source": "distantspeech_tpu_torch/csrc/srp.cu",
+             "replaces": "distantspeech_tpu/ops/pallas_srp.py:29", "launches": counts["fused_srp_spectrum"],
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+             "library_ms": lib_ms}]
 
 
 if __name__ == "__main__":

@@ -13,7 +13,10 @@ Ported so far: the flagship 8-mic MVDR + OM-LSA path (STFT -> MCRA -> gated
 MVDR -> OM-LSA -> ISTFT) with its ``scan``, ``pallas``, ``fused`` and
 ``mega`` backends, and the time-domain GSC (DC notch -> alignment -> FBF /
 blocking matrix -> MCRA-gated FLMS canceller, optionally the OM-LSA-multi
-postfilter) with its ``scan`` and ``fused`` backends.
+postfilter) with its ``scan`` and ``fused`` backends; the frequency-domain
+GSC, the full streaming stack (AEC -> KWS cleaner -> TDGSC), the subband GSC
+with McSpp (``beamform.subband_gsc``) and SRP-PHAT DOA (``doa.srp``), each
+with ``scan`` and ``fused``.
 """
 
 from distantspeech_tpu_torch._device import resolve_device

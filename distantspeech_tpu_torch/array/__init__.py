@@ -1,4 +1,5 @@
 from distantspeech_tpu_torch.array.alignment import fractional_delay_filter_bank, time_alignment_filters
+from distantspeech_tpu_torch.array.coherence import diffuse_coherence
 from distantspeech_tpu_torch.array.geometry import (
     ArrayGeometry,
     circular_array,
@@ -17,4 +18,5 @@ __all__ = [
     "steering_vector",
     "fractional_delay_filter_bank",
     "time_alignment_filters",
+    "diffuse_coherence",
 ]

@@ -23,7 +23,11 @@ of JAX is imported:
   tap FIFO), ``fdgsc_config_from_dict`` / ``fdgsc_state_from_numpy``
   (``FdGscState``) and ``full_stack_config_from_dict`` /
   ``full_stack_state_from_numpy`` (``FullStackState``, with the AEC
-  config nested), in the same way.
+  config nested), in the same way;
+- ``subband_gsc_config_from_dict`` / ``subband_gsc_state_from_numpy``
+  (``SubbandGscState``: the input-side carries and the core, whose McSpp
+  state nests the McCDR's MSC and MCRA states; McSpp's ``frm_cnt`` an int)
+  and ``srp_config_from_dict``.
 """
 
 from __future__ import annotations
@@ -37,12 +41,18 @@ from distantspeech_tpu_torch._device import resolve_device
 from distantspeech_tpu_torch.adaptive.aec import AecConfig, AecState
 from distantspeech_tpu_torch.adaptive.feature import DcNotchState, EmphasisState
 from distantspeech_tpu_torch.adaptive.flms import FlmsState
+from distantspeech_tpu_torch.adaptive.subband import SubbandLmsState
 from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, EnhanceState
 from distantspeech_tpu_torch.beamform.fdgsc import FdGscConfig, FdGscState
 from distantspeech_tpu_torch.beamform.mvdr import MvdrConfig, MvdrState
+from distantspeech_tpu_torch.beamform.subband_gsc import SubbandGscConfig, SubbandGscCoreState, SubbandGscState
 from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig, TdGscState
+from distantspeech_tpu_torch.coherence.msc import MscState
+from distantspeech_tpu_torch.doa.srp import SrpConfig
 from distantspeech_tpu_torch.kws.dual_mic import DualMicKwsConfig, DualMicKwsState
+from distantspeech_tpu_torch.noise.mccdr import McCdrState
 from distantspeech_tpu_torch.noise.mcra import McraState
+from distantspeech_tpu_torch.noise.mcspp import McSppState
 from distantspeech_tpu_torch.noise.omlsa import OmlsaState
 from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, FullStackState
 from distantspeech_tpu_torch.transform import StftConfig
@@ -142,3 +152,33 @@ def full_stack_state_from_numpy(d: Mapping[str, Any], device=None) -> FullStackS
     return FullStackState(aec=aec_state_from_numpy(d["aec"], dev), notch=DcNotchState(mem=_tensor(d["notch"]["mem"], dev)),
                           fir_cache=_tensor(d["fir_cache"], dev), gsc=tdgsc_state_from_numpy(d["gsc"], dev),
                           kws=kws_state_from_numpy(d["kws"], dev))
+
+
+def subband_gsc_config_from_dict(d: Mapping[str, Any]) -> SubbandGscConfig:
+    return SubbandGscConfig(**d)
+
+
+def srp_config_from_dict(d: Mapping[str, Any]) -> SrpConfig:
+    return SrpConfig(**d)
+
+
+def _subband_lms_state(f: Mapping[str, Any], dev) -> SubbandLmsState:
+    return SubbandLmsState(W=_tensor(f["W"], dev), buf=_tensor(f["buf"], dev), P=_tensor(f["P"], dev))
+
+
+def _mcspp_state(sp: Mapping[str, Any], dev) -> McSppState:
+    cdr = sp["mccdr"]
+    msc = MscState(Pxii=_tensor(cdr["msc"]["Pxii"], dev), Pxij=_tensor(cdr["msc"]["Pxij"], dev))
+    return McSppState(Phi_yy=_tensor(sp["Phi_yy"], dev), Phi_vv=_tensor(sp["Phi_vv"], dev),
+                      mccdr=McCdrState(msc=msc, mcra=_mcra_state(cdr["mcra"], dev)), frm_cnt=int(sp["frm_cnt"]))
+
+
+def subband_gsc_state_from_numpy(d: Mapping[str, Any], device=None) -> SubbandGscState:
+    dev = resolve_device(device)
+    t = lambda k: _tensor(d[k], dev)
+    c = d["core"]
+    core = SubbandGscCoreState(spp=_mcspp_state(c["spp"], dev), bm=_subband_lms_state(c["bm"], dev),
+                               istft_bm=_tensor(c["istft_bm"], dev), aic=_subband_lms_state(c["aic"], dev),
+                               stft_aic_x=_tensor(c["stft_aic_x"], dev), istft_aic=_tensor(c["istft_aic"], dev))
+    return SubbandGscState(stft_al=t("stft_al"), stft_fbf=t("stft_fbf"), delay_fbf=t("delay_fbf"),
+                           stft_fbf_d=t("stft_fbf_d"), core=core)

@@ -37,8 +37,11 @@ NVCC_FLAGS = (
 # its plain version fed the same gate, and a guarded gate leaves lanes whose
 # loaded covariance is ill-conditioned enough to amplify a last-bit
 # difference to 1e-3 of the output; without contraction each operation
-# rounds as PyTorch's elementwise operations do.
-SOURCE_FLAGS = {"mvdr": ("-fmad=false",)}
+# rounds as PyTorch's elementwise operations do.  sgsc.cu (K9) likewise: its
+# McSpp speech presence passes through the inverses of noise covariances
+# loaded by as little as 1e-4, which amplify a last-bit difference in the
+# same way.
+SOURCE_FLAGS = {"mvdr": ("-fmad=false",), "sgsc": ("-fmad=false",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

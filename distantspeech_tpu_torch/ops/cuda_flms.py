@@ -143,14 +143,19 @@ def _check(x: torch.Tensor, cfg):
     return x[..., : T * Lf]
 
 
-def front_end(x: torch.Tensor, geometry, angle_rad, cfg):
-    """The TDGSC's frame-independent front end over a whole signal:
-    DC notch (radius 0.98), fractional-delay alignment, fixed beamformer
-    (channel mean) and pairwise-difference blocking matrix.
-    x: [..., M, S] -> (fbf [..., S], bm [..., M-1, S])."""
+def aligned_mics(x: torch.Tensor, geometry, angle_rad) -> torch.Tensor:
+    """The DC notch (radius 0.98) and fractional-delay alignment of x
+    [..., M, S]."""
     _, xn = dc_notch(dc_notch_init(x.shape[:-1], dtype=x.dtype, device=x.device), x, radius=0.98)
     coeffs = torch.as_tensor(time_alignment_filters(geometry, angle_rad), dtype=x.dtype, device=x.device)
-    aligned = fir_filter_offline(xn, coeffs)
+    return fir_filter_offline(xn, coeffs)
+
+
+def front_end(x: torch.Tensor, geometry, angle_rad, cfg):
+    """The TDGSC's frame-independent front end over a whole signal:
+    ``aligned_mics``, fixed beamformer (channel mean) and pairwise-difference
+    blocking matrix.  x: [..., M, S] -> (fbf [..., S], bm [..., M-1, S])."""
+    aligned = aligned_mics(x, geometry, angle_rad)
     return aligned.mean(dim=-2), aligned[..., :-1, :] - aligned[..., 1:, :]
 
 

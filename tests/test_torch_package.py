@@ -16,9 +16,12 @@ from distantspeech_tpu_torch.array.geometry import ArrayGeometry
 from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, enhance_process
 from distantspeech_tpu_torch.beamform.fdgsc import FdGscConfig, fdgsc_process
 from distantspeech_tpu_torch.beamform.mvdr import mvdr_process
+from distantspeech_tpu_torch.beamform.subband_gsc import SubbandGscConfig, subband_gsc_process
 from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig, tdgsc_process
+from distantspeech_tpu_torch.doa import srp_process
 from distantspeech_tpu_torch.kws import kws_process
 from distantspeech_tpu_torch.ops import cuda_aec as ca, cuda_enhance as ce, cuda_flms as cf, cuda_mvdr as cm
+from distantspeech_tpu_torch.ops import cuda_sgsc as cs, cuda_srp as cr
 from distantspeech_tpu_torch.runtime import profiling
 from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, full_stack_process
 
@@ -74,6 +77,12 @@ def test_the_card_is_the_default_device(monkeypatch):
         lambda: ca.fused_aec(x4[:1], x4[None]),
         lambda: cf.fused_kws(x[None, :2]),
         lambda: cf.fused_fdgsc(x4[None], geom4, cfg=FdGscConfig(n_mics=4)),
+        lambda: subband_gsc_process(x4[None], geom4, cfg=SubbandGscConfig(n_mics=4)),
+        lambda: subband_gsc_process(x4[None], geom4, cfg=SubbandGscConfig(n_mics=4), backend="fused"),
+        lambda: cs.fused_subband_gsc(x4[None], geom4),
+        lambda: srp_process(x, geom),
+        lambda: srp_process(x, geom, backend="fused"),
+        lambda: cr.fused_srp_spectrum(np.zeros((3, 129, 8), np.complex64), np.ones((360, 129, 8), np.complex64)),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -81,7 +90,7 @@ def test_the_card_is_the_default_device(monkeypatch):
 
 
 def test_cpu_tensors_leave_launches_at_zero():
-    for mod in (ca, ce, cf, cm):
+    for mod in (ca, ce, cf, cm, cs, cr):
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
     x = np.random.default_rng(0).standard_normal((1, 2, 128 * 6)).astype(np.float32)
@@ -100,6 +109,11 @@ def test_cpu_tensors_leave_launches_at_zero():
     assert y.shape == kws.shape == (1, 256 * 6) and p.shape == (1, 6, 257) and bool(torch.isfinite(y).all())
     y, p, bm = fdgsc_process(x4, geom4, (np.pi / 2, 0.0), FdGscConfig(n_mics=4), backend="fused", device="cpu")
     assert y.shape == (1, 256 * 6) and bm.shape == (1, 4, 256 * 6) and bool(torch.isfinite(y).all())
+    y, p, bm = subband_gsc_process(x4, geom4, (np.pi / 2, 0.0), SubbandGscConfig(n_mics=4), backend="fused", device="cpu")
+    assert y.shape == (1, 256 * 6) and p.shape == (1, 6, 257) and bool(torch.isfinite(y).all())
+    spec, p = srp_process(x4, geom4, backend="fused", device="cpu")
+    assert spec.shape == (1, 12, 360) and p.shape == (1, 12, 129) and bool(torch.isfinite(spec).all())
+    assert cs.LAUNCHES == {"fused_subband_gsc": 0} and cr.LAUNCHES == {"fused_srp_spectrum": 0}
     assert ce.LAUNCHES == {"fused_enhance": 0, "fused_enhance_full": 0} and cm.LAUNCHES == {"fused_mvdr_scan": 0}
     assert cf.LAUNCHES == {"fused_tdgsc": 0, "fused_kws": 0, "fused_fdgsc": 0} and ca.LAUNCHES == {"fused_aec": 0}
 
