@@ -8,7 +8,7 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
 1. the card: its name and power limit from nvidia-smi;
 2. build every kernel from ``distantspeech_tpu_torch/csrc`` with nvcc for
    sm_90a into ``build/kernels/``; print the build time and ptxas's
-   register and spill report;
+   register and spill report, per entry function;
 3. kernel vs plain on the card, float32, B=8 x 8 mics x 1 s, the same
    t_chunk on both sides (T=125 -> t_chunk 25: 3 warm chunks, then the
    Bennett path and one re-anchor): both kernels in 'ldl' and 'rank1' mode
@@ -45,7 +45,8 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    through ``tdgsc_process(x, ArrayGeometry.linear(4, 0.032), (pi/2, 0),
    TdGscConfig(n_mics=4[, postfilter=True]), backend="fused")`` on B=128 x
    4 x 4 s (one K5 launch each, finite, output SNR above mic 0's), held to
-   the plain version again at that size; timings;
+   the plain version again at that size; timings, with the kernel's time a
+   frame;
 9. kernels K7 (``fused_aec``, ``csrc/aec.cu``), K6 (``fused_kws``,
    ``csrc/kws.cu``) and K8 (``fused_fdgsc``, ``csrc/fdgsc.cu``) against
    their plain versions at B=8 x 4 mics (K7 and K8 on 1 s, K6 on 2 s so its
@@ -62,7 +63,9 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
 11. the FDGSC (B4) at full size through ``fdgsc_process(x,
    ArrayGeometry.linear(4, 0.032), (pi/2, 0), FdGscConfig(n_mics=4),
    backend="fused")`` on B=128 x 4 x 4 s (one K8 launch, finite, output SNR
-   above mic 0's), held to the plain version at that size; timings;
+   above mic 0's), held to the plain version at that size, K8's and the
+   float32 plain version's gaps to the float64 plain version printed;
+   timings, with the kernel's time a frame;
 12. kernel K9 (``fused_subband_gsc``, ``csrc/sgsc.cu``) against its plain
    version at B=8 x 4 mics x 1 s with the default config, the AIC guards
    and a short MCRA window (L=3): out and bm < 1e-3 of max, p < 2e-3
@@ -283,9 +286,12 @@ def main() -> int:
     libs = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(libs)}", flush=True)
     for name, lib in libs.items():
+        entry = ""
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+            if "entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas {name} {entry}: {line.strip()}")
 
     dev = torch.device("cuda")
     kernels = smoke(dev, card, B=64, seconds=4)
@@ -739,8 +745,9 @@ def smoke_k5(dev, card: str, B: int, seconds: int) -> list:
               f"{rel_err(out, want64)[0]:.3e}, float32 plain rel {rel_err(want, want64)[0]:.3e}", flush=True)
         ms = benchmark(cf.tdgsc_frames, *ins, cfg)["per_call_s"] * 1e3
         t_path = benchmark(tdgsc_process, x, geom, look, cfg, "fused")["per_call_s"]
-        print(f"{name}: kernel {ms:.3f} ms/call; tdgsc_process fused {t_path * 1e3:.3f} ms/call, "
-              f"{B * S / FS / t_path:.0f} audio-s/s (B={B}, M={M}, {seconds} s); plain {plain_ms:.1f} ms {tag}", flush=True)
+        print(f"{name}: kernel {ms:.3f} ms/call, {ms * 1e3 / T:.2f} us a frame; tdgsc_process fused "
+              f"{t_path * 1e3:.3f} ms/call, {B * S / FS / t_path:.0f} audio-s/s (B={B}, M={M}, {seconds} s); "
+              f"plain {plain_ms:.1f} ms {tag}", flush=True)
 
         # bound: bytes of the kernel's inputs and outputs; operations: each
         # 512-point transform at a real FFT's 2.5 N log2 N + N, 5C + 2 per
@@ -904,7 +911,7 @@ def smoke_slice_c(dev, card: str, B: int, seconds: int) -> list:
         check(rel < tol and rel_bm < tol and dp < tol,
               f"fused_fdgsc {where} vs plain: out rel {rel:.3e} (max abs {mx:.3e}), bm rel {rel_bm:.3e}, "
               f"p max abs {dp:.3e}, all < {tol:g}")
-        return mx, plain_ms
+        return mx, plain_ms, (wo, wp, wb)
 
     # ---- 9. the kernels at the gate size (B=8, 4 mics) -----------------------
     far, x, _ = echo_scene(8, M, 2 * FS, seed=6)
@@ -1021,11 +1028,16 @@ def smoke_slice_c(dev, card: str, B: int, seconds: int) -> list:
     snr_out = segment_snr_db(o.cpu().numpy(), env[:, :Sp], 40 + dcfg.frame_len)  # alignment, the FBF's causality delay
     check(snr_out > snr_in, f"fdgsc_process fused: output SNR {snr_out:.2f} dB > mic 0's {snr_in:.2f} dB")
     ins8 = fdgsc_inputs(x)
-    k8_err, k8_plain_ms = hold_fdgsc(ins8, f"(B={B}, {seconds} s)", outs)
+    k8_err, k8_plain_ms, w32 = hold_fdgsc(ins8, f"(B={B}, {seconds} s)", outs)
     k8_ms = benchmark(cf.fdgsc_frames, *ins8, dcfg)["per_call_s"] * 1e3
     t_path = benchmark(fdgsc_process, x, geom, look, dcfg, True, "fused")["per_call_s"]
-    print(f"fused_fdgsc: kernel {k8_ms:.3f} ms/call; fdgsc_process fused {t_path * 1e3:.3f} ms/call, "
-          f"{B * S / FS / t_path:.0f} audio-s/s (B={B}, M={M}, {seconds} s); plain {k8_plain_ms:.1f} ms {tag}", flush=True)
+    print(f"fused_fdgsc: kernel {k8_ms:.3f} ms/call, {k8_ms * 1e3 / T:.2f} us a frame; fdgsc_process fused "
+          f"{t_path * 1e3:.3f} ms/call, {B * S / FS / t_path:.0f} audio-s/s (B={B}, M={M}, {seconds} s); "
+          f"plain {k8_plain_ms:.1f} ms {tag}", flush=True)
+    w64 = cf.fdgsc_frames_plain(*(a.double() for a in ins8), dcfg)
+    print("fused_fdgsc at full size against the float64 plain version (out, bm): kernel rel "
+          f"{rel_err(o, w64[0])[0]:.3e}, {rel_err(bm, w64[2])[0]:.3e}; float32 plain rel "
+          f"{rel_err(w32[0], w64[0])[0]:.3e}, {rel_err(w32[2], w64[2])[0]:.3e}", flush=True)
     c1 = tuple(a[:1].double().cpu() for a in ins8)
     k8_ops = frame_ops(lambda n: cf.fdgsc_frames_plain(c1[0][:, : n * L], c1[1][..., : n * L], c1[2][:, : n * L],
                                                       c1[3][:, :n], dcfg), 3)

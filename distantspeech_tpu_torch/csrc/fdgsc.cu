@@ -10,24 +10,41 @@
 // filter-norm ceiling.  The plain version is fdgsc_frames_plain in
 // ops/cuda_flms.py.
 //
-// Design.  One 256-thread block per utterance runs the whole frame loop.
-// The state lives in shared memory: the BM and AIC filters as Lf
-// time-domain taps each (so the CCAF clamp, the last-hop zeroing and the
+// Design.  One block of kFrameThreads threads per utterance runs the whole
+// frame loop.  The state lives in shared memory: the BM and AIC filters as
+// Lf time-domain taps each (so the CCAF clamp, the last-hop zeroing and the
 // Lf-tap support are plain tap operations), the previous BM outputs, both
 // FLMS powers and the MCRA state per bin.  All F = Lf + 1 bins are uniform
 // lanes, so the AIC step's mean over F bins takes the Nyquist p (pinned at
 // p_min) as one more lane.  The norm ceiling needs the half spectrum of the
 // updated, unconstrained AIC filter: that is W + step G per bin, from the
-// tap spectra and gradients this frame computes anyway, summed in a block
-// reduction before the gradients go back to taps.  Per frame, 3 + 7 M
-// 512-point FFTs (31 at M = 4) in 7 batched passes (flms_lane.cuh).
+// tap spectra and gradients this frame computes anyway, summed over the
+// block before the gradients go back to taps.  Each 512-point transform is
+// owned by one warp or a warp pair (flms_fft.cuh), two real transforms
+// packed into each complex one: per frame 3 + 7 M real transforms (31 at
+// M = 4) as M + M / 2 + 5 complex ones (17 at M = 4) in 6 batches: {the FBF
+// analysis alone, the M BM tap spectra in pairs} (1 + M / 2; the small taps
+// do not share a transform with the analysis, whose rounding would drown
+// them), {the M BM outputs} (M / 2), {E_bm and the AIC input of each mic}
+// (M) with {the M AIC tap spectra} (M / 2), {the M BM gradients, the AIC
+// output} (M / 2 + 1), {the AIC error} (1) and {the M AIC gradients}
+// (M / 2).  Block barriers: 13 a frame, each
+// where data crosses between the per-transform and the per-bin layouts (the
+// two block sums ride on them); none inside a transform.  The next frame's
+// inputs (the FBF block, the M delayed mic blocks, the delayed FBF block and
+// the reference power) are prefetched with cp.async into a two-slot ring
+// while the frame computes.
 //
-// What bounds it on an H100 (B = 128, M = 4, 4 s): operations, 31
-// transforms per utterance and frame; and the latency of ~70 barriers per
-// frame, with one block of 8 warps per utterance on 132 SMs.
+// What bounds it on an H100 (B = 128, M = 4, 4 s): the serial chain of a
+// frame, 6 transform batches and 7 per-bin or per-sample phases between
+// block barriers, with one block per utterance (128 blocks on 132 SMs); the
+// 31 real transforms a frame are the operation bound.  The design it
+// replaces, a block-wide radix-2 FFT with a block barrier per stage (~75 a
+// frame), took 10.761 ms on an H100 at 700 W (PERF.md's kernel table keeps
+// both times).  No tensor cores (flms_fft.cuh).
 #include <cuda_runtime.h>
 
-#include "flms_lane.cuh"
+#include "flms_fft.cuh"
 
 // Field order and types are mirrored by _FdgscParams in ops/cuda_flms.py.
 struct FdgscParams {
@@ -40,10 +57,18 @@ struct FdgscParams {
 
 namespace {
 
+// One slot of the input ring, in floats: the FBF block, the M delayed mic
+// blocks, the delayed FBF block and the reference power.
+__host__ __device__ __forceinline__ int slot_floats(int M, int Lf) {
+  return round4(Lf) + round4(M * Lf) + round4(Lf) + round4(Lf + 1);
+}
+
 // Shared memory in floats; the kernel carves it in this order.
 size_t smem_floats(int M, int Lf) {
   const size_t N = 2 * Lf, F = Lf + 1, hop = Lf;
-  return (4 * M + 2) * N * 2 + N + Lf + 2 * M * Lf + M * hop + 2 * F + 5 * F + 2 * F + 4 * kWarps;
+  const size_t nseq = (1 + M / 2) + (M / 2 + 1) + M + M / 2 + 1;
+  return 2 * (size_t)slot_floats(M, Lf) + nseq * N * 2 + N + Lf + 2 * M * Lf + M * hop + 2 * F + 5 * F + F +
+         4 * kFrameWarps;
 }
 
 // fbf, daic [B, T*Lf] (the FBF, and the FBF delayed by Lf), dbm [B, M, T*Lf]
@@ -51,32 +76,35 @@ size_t smem_floats(int M, int Lf) {
 // power), tabs [N/2 twiddles as (cos, sin) | N/2 CCAF upper bounds]
 // -> out [B, T*Lf], p [B, T, F], bm [B, M, T*Lf]
 template <int M>
-__global__ void __launch_bounds__(kThreads) fdgsc_kernel(const float* __restrict__ fbf, const float* __restrict__ dbm,
-                                                         const float* __restrict__ daic, const float* __restrict__ yp,
-                                                         const float* __restrict__ tabs, float* __restrict__ out,
-                                                         float* __restrict__ pout, float* __restrict__ bmo, int T,
-                                                         int Lf, int logN, FdgscParams prm) {
+__global__ void __launch_bounds__(kFrameThreads, 1) fdgsc_kernel(const float* __restrict__ fbf, const float* __restrict__ dbm,
+                                                              const float* __restrict__ daic, const float* __restrict__ yp,
+                                                              const float* __restrict__ tabs, float* __restrict__ out,
+                                                              float* __restrict__ pout, float* __restrict__ bmo, int T,
+                                                              int Lf, int logN, FdgscParams prm) {
   extern __shared__ float4 smem4[];
+  constexpr int nA = 1 + M / 2;    // the FBF analysis (with zero), then the BM tap spectra in pairs
+  constexpr int nY = M / 2 + 1;    // BM output pairs; BM gradient pairs + the AIC output; AIC gradient pairs
   const int N = 2 * Lf, hop = Lf, F = Lf + 1;
   const int tid = threadIdx.x;
   const size_t S = (size_t)T * hop;
-  float2* bX = reinterpret_cast<float2*>(smem4);  // [N] FBF analysis, then the AIC error spectrum
-  float2* bW = bX + N;                            // [M][N] BM tap spectra, then the BM error spectra
-  float2* bA = bW + M * N;                        // [M][N] AIC input spectra
-  float2* bWa = bA + M * N;                       // [M][N] AIC tap spectra
-  float2* bY = bWa + M * N;                       // [M+1][N] inverses: BM outputs; BM gradients and AIC output;
-                                                  //   AIC gradients
-  float2* tw = bY + (M + 1) * N;                  // [N/2]
-  float* ub = reinterpret_cast<float*>(tw + N / 2);  // [Lf] CCAF upper bounds
-  float* Wbm = ub + Lf;                           // [M][Lf] BM taps
-  float* Waic = Wbm + M * Lf;                     // [M][Lf] AIC taps
-  float* Eprev = Waic + M * Lf;                   // [M][hop] previous BM outputs
-  float* Pbm = Eprev + M * hop;                   // [F] BM FLMS power
-  float* Paic = Pbm + F;                          // [F] AIC FLMS power
-  float* ms = Paic + F;                           // [5][F] MCRA S, Smin, Stmp, P, Lam
-  float* fp = ms + 5 * F;                         // [F] this frame's reference power
-  float* pp = fp + F;                             // [F] this frame's MCRA p
-  float* red = pp + F;                            // [4][kWarps] reductions
+  const int slot = slot_floats(M, Lf);
+  const int o_m = round4(hop), o_a = o_m + round4(M * hop), o_y = o_a + round4(hop);
+  float* ring = reinterpret_cast<float*>(smem4);            // [2][slot] this and the next frame's inputs
+  float2* bA = reinterpret_cast<float2*>(ring + 2 * slot);  // [nA][N] X, W_0 + i W_1, W_2 + i W_3, ...
+  float2* bY = bA + nA * N;                                // [nY][N] inverses
+  float2* bP = bY + nY * N;                                // [M][N] E_bm + i AIC input, per mic
+  float2* bQ = bP + M * N;                                 // [M/2][N] AIC tap spectra in pairs (after bP)
+  float2* bE = bQ + (M / 2) * N;                           // [N] the AIC error spectrum
+  float2* tw = bE + N;                                     // [N/2]
+  float* ub = reinterpret_cast<float*>(tw + N / 2);         // [Lf] CCAF upper bounds
+  float* Wbm = ub + Lf;                                     // [M][Lf] BM taps
+  float* Waic = Wbm + M * Lf;                               // [M][Lf] AIC taps
+  float* Eprev = Waic + M * Lf;                             // [M][hop] previous BM outputs
+  float* Pbm = Eprev + M * hop;                             // [F] BM FLMS power
+  float* Paic = Pbm + F;                                    // [F] AIC FLMS power
+  float* ms = Paic + F;                                     // [5][F] MCRA S, Smin, Stmp, P, Lam
+  float* pp = ms + 5 * F;                                   // [F] this frame's MCRA p
+  float* red = pp + F;                                      // [3][kFrameWarps] p's sums, [kFrameWarps] the norm
 
   const int b = blockIdx.x;
   const float* fb = fbf + b * S;
@@ -84,19 +112,31 @@ __global__ void __launch_bounds__(kThreads) fdgsc_kernel(const float* __restrict
   const float* db = dbm + (size_t)b * M * S;
   float* bo = bmo + (size_t)b * M * S;
   float* ob = out + b * S;
+  // the next frame's inputs into ring slot t & 1
+  auto prefetch = [&](int t) {
+    float* sl = ring + (t & 1) * slot;
+    prefetch_floats(sl, fb + (size_t)t * hop, hop);
+    for (int m = 0; m < M; ++m) prefetch_floats(sl + o_m + m * hop, db + m * S + (size_t)t * hop, hop);
+    prefetch_floats(sl + o_a, ab + (size_t)t * hop, hop);
+    prefetch_floats(sl + o_y, yp + ((size_t)b * T + t) * F, F);
+    copy_async_commit();
+  };
+  prefetch(0);
   const float2* twg = reinterpret_cast<const float2*>(tabs);
-  for (int i = tid; i < N / 2; i += kThreads) tw[i] = twg[i];
-  for (int i = tid; i < Lf; i += kThreads) ub[i] = tabs[N + i];
-  for (int i = tid; i < 3 * M * Lf + 7 * F; i += kThreads) Wbm[i] = 0.f;  // taps, Eprev, powers, MCRA
+  for (int i = tid; i < N / 2; i += kFrameThreads) tw[i] = twg[i];
+  for (int i = tid; i < Lf; i += kFrameThreads) ub[i] = tabs[N + i];
+  for (int i = tid; i < 3 * M * Lf + 7 * F; i += kFrameThreads) Wbm[i] = 0.f;  // taps, Eprev, powers, MCRA
   const float invN = 1.f / (float)N;
+  copy_async_wait_all();
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
+    const float* cur = ring + (t & 1) * slot;
+    const float* old = ring + ((t + 1) & 1) * slot;  // frame t - 1's FBF block
+    const float* fp = cur + o_y;
     // ---- MCRA on the reference power, p's sums for the pinning and the AIC step
-    for (int k = tid; k < F; k += kThreads) fp[k] = yp[((size_t)b * T + t) * F + k];
-    __syncthreads();
     float s[3] = {0.f, 0.f, 0.f};  // sum of p over bins 32..127, over all bins, pinning's raise over bins 0..31
-    for (int k = tid; k < F; k += kThreads) {
+    for (int k = tid; k < F; k += kFrameThreads) {
       McraLane m = load_mcra(ms, F, k);
       const float Sf = prm.b0 * fp[k > 0 ? k - 1 : 0] + prm.b1 * fp[k] + prm.b2 * fp[k < F - 1 ? k + 1 : F - 1];
       float lam, sr;
@@ -107,112 +147,138 @@ __global__ void __launch_bounds__(kThreads) fdgsc_kernel(const float* __restrict
       s[1] += p;
       if (k < 32) s[2] += fmaxf(p, 0.8f) - p;
     }
-    block_sum<3>(s, red);
+    warp_partials<3>(s, red);
+    // ---- load: [fbf_{t-1}, fbf_t]; the BM taps W_0 + i W_1, W_2 + i W_3, ... bit-reversed
+    for (int i = tid; i < nA * N; i += kFrameThreads) {
+      const int q = i >> logN, n = i & (N - 1);
+      float2 v = make_float2(0.f, 0.f);
+      if (q == 0)
+        v.x = n < hop ? (t > 0 ? old[n] : 0.f) : cur[n - hop];
+      else if (n < Lf)
+        v = make_float2(Wbm[(2 * q - 2) * Lf + n], Wbm[(2 * q - 1) * Lf + n]);
+      bA[q * N + swz(bitrev(n, logN), logN)] = v;
+    }
+    __syncthreads();  // 1
+    if (t + 1 < T) prefetch(t + 1);  // into frame t - 1's slot, read for the last time above
+    sum_partials<3>(s, red);
     const bool pin = s[0] / 96.f > 0.8f;
     const float step = prm.aic_mu * (1.f - (pin ? s[1] + s[2] : s[1]) / (float)F);
-    for (int k = tid; k < F; k += kThreads)
+    for (int k = tid; k < F; k += kFrameThreads)
       pout[((size_t)b * T + t) * F + k] = (pin && k < 32) ? fmaxf(pp[k], 0.8f) : pp[k];
+    fft_batch<false>(bA, nA, N, logN, tw);
+    __syncthreads();  // 2
 
-    // ---- load: [fbf_{t-1}, fbf_t] and the BM taps, bit-reversed
-    for (int i = tid; i < N; i += kThreads) {
-      const float v = i < hop ? (t > 0 ? fb[(size_t)(t - 1) * hop + i] : 0.f) : fb[(size_t)t * hop + i - hop];
-      bX[bitrev(i, logN)] = make_float2(v, 0.f);
-    }
-    for (int i = tid; i < M * N; i += kThreads) {
-      const int m = i >> logN, n = i & (N - 1);
-      bW[m * N + bitrev(n, logN)] = make_float2(n < Lf ? Wbm[m * Lf + n] : 0.f, 0.f);
-    }
-    __syncthreads();
-    fft_stages(bX, 1 + M, N, logN, tw, false);  // X and the M BM tap spectra
-
-    // ---- per bin: the BM power, the M BM outputs
-    for (int k = tid; k < F; k += kThreads) {
-      const float2 X = bX[k];
+    // ---- per bin: the BM power, the M BM outputs in pairs
+    for (int k = tid; k < F; k += kFrameThreads) {
+      const float2 X = bA[swz(k, logN)];  // the FBF analysis, a real signal's transform
       Pbm[k] = fmaxf(prm.bm_alpha * Pbm[k] + prm.bm_one_m_alpha * (X.x * X.x + X.y * X.y), 1e-4f);
 #pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const float2 Y = cmulf(X, bW[m * N + k]);
-        put_half(bY + m * N, k, N, logN, Y.x, Y.y);
+      for (int q = 0; q < M / 2; ++q) {
+        float2 W0, W1;
+        split_pair(bA + (1 + q) * N, k, N, logN, W0, W1);
+        put_pair(bY + q * N, k, N, logN, cmulf(X, W0), cmulf(X, W1));
       }
     }
-    __syncthreads();
-    fft_stages(bY, M, N, logN, tw, true);
+    __syncthreads();  // 3
+    fft_batch<true>(bY, M / 2, N, logN, tw);
+    __syncthreads();  // 4
 
-    // ---- BM outputs e_bm (the BM's error spectra input [0; e_bm] and the
-    // AIC input [e_prev; e_bm]); the AIC taps
-    for (int i = tid; i < M * hop; i += kThreads) {
+    // ---- BM outputs e_bm: the BM error input [0; e_bm] + i the AIC input
+    // [e_prev; e_bm] per mic; the AIC taps in pairs
+    for (int i = tid; i < M * hop; i += kFrameThreads) {
       const int m = i >> (logN - 1), n = i & (hop - 1);
-      const float e = db[(size_t)m * S + (size_t)t * hop + n] - bY[m * N + hop + n].x * invN;
+      const float2 y = bY[(m >> 1) * N + swz(hop + n, logN)];
+      const float e = cur[o_m + i] - ((m & 1) ? y.y : y.x) * invN;
       bo[(size_t)m * S + (size_t)t * hop + n] = e;
-      bW[m * N + bitrev(n, logN)] = make_float2(0.f, 0.f);
-      bW[m * N + bitrev(hop + n, logN)] = make_float2(e, 0.f);
-      bA[m * N + bitrev(n, logN)] = make_float2(Eprev[i], 0.f);
-      bA[m * N + bitrev(hop + n, logN)] = make_float2(e, 0.f);
+      bP[m * N + swz(bitrev(n, logN), logN)] = make_float2(0.f, Eprev[i]);
+      bP[m * N + swz(bitrev(hop + n, logN), logN)] = make_float2(e, e);
       Eprev[i] = e;
     }
-    for (int i = tid; i < M * N; i += kThreads) {
-      const int m = i >> logN, n = i & (N - 1);
-      bWa[m * N + bitrev(n, logN)] = make_float2(n < Lf ? Waic[m * Lf + n] : 0.f, 0.f);
+    for (int i = tid; i < (M / 2) * N; i += kFrameThreads) {
+      const int q = i >> logN, n = i & (N - 1);
+      const bool in = n < Lf;
+      bQ[q * N + swz(bitrev(n, logN), logN)] =
+          make_float2(in ? Waic[2 * q * Lf + n] : 0.f, in ? Waic[(2 * q + 1) * Lf + n] : 0.f);
     }
-    __syncthreads();
-    fft_stages(bW, 3 * M, N, logN, tw, false);  // E_bm, the AIC inputs and tap spectra
+    __syncthreads();  // 5
+    fft_batch<false>(bP, M + M / 2, N, logN, tw);  // bP and bQ are adjacent
+    __syncthreads();  // 6
 
     // ---- per bin: the BM gradients; the AIC output and power
-    for (int k = tid; k < F; k += kThreads) {
-      const float2 X = bX[k];
+    for (int k = tid; k < F; k += kFrameThreads) {
+      const float2 X = bA[swz(k, logN)];
       const float P = Pbm[k];
-      float2 Y = make_float2(0.f, 0.f);
+      float2 Y = make_float2(0.f, 0.f), g[M], Wa[M];
       float pw = 0.f;
 #pragma unroll
+      for (int q = 0; q < M / 2; ++q) split_pair(bQ + q * N, k, N, logN, Wa[2 * q], Wa[2 * q + 1]);
+#pragma unroll
       for (int m = 0; m < M; ++m) {
-        put_grad(bY + m * N, k, N, logN, X, bW[m * N + k], P);
-        const float2 Za = bA[m * N + k], y = cmulf(Za, bWa[m * N + k]);
+        float2 Eb, Za;
+        split_pair(bP + m * N, k, N, logN, Eb, Za);
+        g[m] = grad_bin(X, Eb, P);
+        const float2 y = cmulf(Za, Wa[m]);
         Y = make_float2(Y.x + y.x, Y.y + y.y);
         pw = pw + (Za.x * Za.x + Za.y * Za.y);
       }
       Paic[k] = fmaxf(prm.aic_alpha * Paic[k] + prm.aic_one_m_alpha * pw, 1e-4f);
-      put_half(bY + M * N, k, N, logN, Y.x, Y.y);
+#pragma unroll
+      for (int q = 0; q < M / 2; ++q) put_pair(bY + q * N, k, N, logN, g[2 * q], g[2 * q + 1]);
+      put_pair(bY + (M / 2) * N, k, N, logN, Y, make_float2(0.f, 0.f));
     }
-    __syncthreads();
-    fft_stages(bY, M + 1, N, logN, tw, true);
+    __syncthreads();  // 7
+    fft_batch<true>(bY, nY, N, logN, tw);
+    __syncthreads();  // 8
 
     // ---- the BM update (the first Lf taps), CCAF-clamped; the AIC error
-    for (int i = tid; i < M * Lf; i += kThreads) {
+    for (int i = tid; i < M * Lf; i += kFrameThreads) {
       const int m = i >> (logN - 1), n = i & (Lf - 1);
-      Wbm[i] = fminf(fmaxf(Wbm[i] + prm.bm_mu * (bY[m * N + n].x * invN), -0.001f), ub[n]);
+      const float2 u = bY[(m >> 1) * N + swz(n, logN)];
+      Wbm[i] = fminf(fmaxf(Wbm[i] + prm.bm_mu * (((m & 1) ? u.y : u.x) * invN), -0.001f), ub[n]);
     }
-    for (int n = tid; n < hop; n += kThreads) {
-      const float e = ab[(size_t)t * hop + n] - bY[M * N + hop + n].x * invN;
+    for (int n = tid; n < hop; n += kFrameThreads) {
+      const float e = cur[o_a + n] - bY[(M / 2) * N + swz(hop + n, logN)].x * invN;
       ob[(size_t)t * hop + n] = e;
-      bX[bitrev(n, logN)] = make_float2(0.f, 0.f);
-      bX[bitrev(hop + n, logN)] = make_float2(e, 0.f);
+      bE[swz(bitrev(n, logN), logN)] = make_float2(0.f, 0.f);
+      bE[swz(bitrev(hop + n, logN), logN)] = make_float2(e, 0.f);
     }
-    __syncthreads();
-    fft_stages(bX, 1, N, logN, tw, false);
+    __syncthreads();  // 9
+    fft_batch<false>(bE, 1, N, logN, tw);
+    __syncthreads();  // 10
 
-    // ---- per bin: the AIC gradients and the norm of the updated filter
+    // ---- per bin: the AIC gradients in pairs and the norm of the updated filter
     float nrm[1] = {0.f};
-    for (int k = tid; k < F; k += kThreads) {
-      const float2 E = bX[k];
+    for (int k = tid; k < F; k += kFrameThreads) {
+      const float2 E = bE[swz(k, logN)];
       const float P = Paic[k];
+      float2 g[M], Wa[M];
+#pragma unroll
+      for (int q = 0; q < M / 2; ++q) split_pair(bQ + q * N, k, N, logN, Wa[2 * q], Wa[2 * q + 1]);
 #pragma unroll
       for (int m = 0; m < M; ++m) {
-        const float2 Za = bA[m * N + k], Wa = bWa[m * N + k];
-        const float gr = (Za.x * E.x + Za.y * E.y) / P, gi = (Za.x * E.y - Za.y * E.x) / P;
-        put_half(bY + m * N, k, N, logN, gr, gi);
-        const float nr = Wa.x + step * gr, ni = Wa.y + step * gi;
+        float2 Eb, Za;
+        split_pair(bP + m * N, k, N, logN, Eb, Za);
+        g[m] = grad_bin(Za, E, P);
+        const float nr = Wa[m].x + step * g[m].x, ni = Wa[m].y + step * g[m].y;
         nrm[0] += nr * nr + ni * ni;
       }
+#pragma unroll
+      for (int q = 0; q < M / 2; ++q) put_pair(bY + q * N, k, N, logN, g[2 * q], g[2 * q + 1]);
     }
-    block_sum<1>(nrm, red);
+    warp_partials<1>(nrm, red + 3 * kFrameWarps);
+    __syncthreads();  // 11
+    sum_partials<1>(nrm, red + 3 * kFrameWarps);
     const float norm = nrm[0] / (float)N / (float)N;
     const float scale = norm > prm.maxnorm ? sqrtf(prm.maxnorm / fmaxf(norm, 1e-30f)) : 1.f;
-    fft_stages(bY, M, N, logN, tw, true);
-    for (int i = tid; i < M * Lf; i += kThreads) {
+    fft_batch<true>(bY, M / 2, N, logN, tw);
+    __syncthreads();  // 12
+    for (int i = tid; i < M * Lf; i += kFrameThreads) {
       const int m = i >> (logN - 1), n = i & (Lf - 1);
-      Waic[i] = (Waic[i] + step * (bY[m * N + n].x * invN)) * scale;
+      const float2 u = bY[(m >> 1) * N + swz(n, logN)];
+      Waic[i] = (Waic[i] + step * (((m & 1) ? u.y : u.x) * invN)) * scale;
     }
-    __syncthreads();
+    copy_async_wait_all();  // the next frame's inputs
+    __syncthreads();  // 13
   }
 }
 
@@ -223,7 +289,7 @@ cudaError_t launch(const float* fbf, const float* dbm, const float* daic, const 
   const size_t smem = sizeof(float) * smem_floats(M, Lf);
   const cudaError_t e = allow_smem(fdgsc_kernel<M>, smem);
   if (e != cudaSuccess) return e;
-  fdgsc_kernel<M><<<B, kThreads, smem, st>>>(fbf, dbm, daic, yp, tabs, out, p, bm, T, Lf, logN, prm);
+  fdgsc_kernel<M><<<B, kFrameThreads, smem, st>>>(fbf, dbm, daic, yp, tabs, out, p, bm, T, Lf, logN, prm);
   return cudaGetLastError();
 }
 

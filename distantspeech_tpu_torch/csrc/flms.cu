@@ -8,34 +8,42 @@
 // decision-directed gain, sqrt(G), windowed ISTFT overlap-add).  The plain
 // version is tdgsc_frames_plain in ops/cuda_flms.py.
 //
-// Design.  One 256-thread block per utterance runs the whole frame loop;
-// all state lives in shared memory: the C filters as Lf time-domain taps
-// (so the gradient constraint and fir_truncate are masks), the FLMS power
-// and the MCRA state per bin, and with the postfilter the (1 + C) MCRA
-// trackers, the OM-LSA carries and the overlap-add tail.  All F = Lf + 1
-// bins are uniform lanes (the TPU kernel's Nyquist packing is not needed).
-// The TPU kernel's per-frame transforms are dots against [512, 512] DFT
-// matrices (1 MB each, more than a block's shared memory); here each one is
-// a 512-point radix-2 FFT in shared memory (flms_lane.cuh), a real signal as
-// a complex FFT with zero imaginary part, a half spectrum through its
-// hermitian extension.  Per frame: the C analyses of the blocking-matrix
-// buffers and the C tap spectra (one batched pass), the inverse for the output, the
-// error spectrum, the C inverse gradients (constraint), their C forward
-// transforms, and the C inverse gated updates; with the postfilter also the
-// windowed analysis (batched with the error spectrum) and the synthesis
-// (batched with the gradients).  Twiddles and the window come from the
-// host with the exact zeros of sin and cos kept exact, so bins 0 and N/2 of
-// a real signal stay real.
+// Design.  One block of kFrameThreads threads per utterance runs the whole
+// frame loop; all state lives in shared memory: the C filters as Lf
+// time-domain taps (so the gradient constraint and fir_truncate are masks),
+// the FLMS power and the MCRA state per bin, and with the postfilter the
+// (1 + C) MCRA trackers, the OM-LSA carries and the overlap-add tail.  All
+// F = Lf + 1 bins are uniform lanes (the TPU kernel's Nyquist packing is not
+// needed).  The TPU kernel's per-frame transforms are dots against
+// [512, 512] DFT matrices; here each is a 512-point FFT owned by one warp or
+// a warp pair (flms_fft.cuh), two real transforms packed into each complex
+// one.  Per frame, 11 complex transforms at C = 3 (5C + 2 = 17 real ones,
+// 19 with the postfilter) in 6 batches: the C analyses with the C tap
+// spectra (C; the taps scaled by an exact power of two to the analyses'
+// magnitude, from the previous frame's maxima, so that the small tap
+// spectra keep their precision), the output inverse (1), the error spectrum
+// with the postfilter analysis (1), the C gradients with the postfiltered
+// beam ((C + 1) / 2), the C constrained gradients ((C + 1) / 2) and the C
+// gated updates ((C + 1) / 2).  Block barriers: 13 a frame (14 with the
+// postfilter), each where data crosses between the per-transform and the
+// per-bin layouts; none inside a transform.  The next frame's inputs (the C
+// blocking-matrix blocks, the desired block, the FBF power and, with the
+// postfilter, the C reference powers) are prefetched with cp.async into a
+// two-slot ring while the frame computes.  Twiddles and the window come from
+// the host with the exact zeros of sin and cos kept exact, so bins 0 and N/2
+// of a real signal stay real.
 //
-// What bounds it on an H100 (B = 128, M = 4, 4 s): operations, ~17 (19 with
-// the postfilter) 512-point transforms per utterance and frame against a
-// few MB of input; and more than either, the latency of its ~60 barriers
-// per frame, with 128 blocks of 8 warps on 132 SMs.  This first version
-// takes one butterfly per thread per stage and makes no attempt at bank
-// conflicts or at packing two real transforms into one complex FFT.
+// What bounds it on an H100 (B = 128, M = 4, 4 s): the serial chain of a
+// frame, 6 transform batches and 6-7 per-bin phases between block barriers,
+// with one block per utterance (128 blocks on 132 SMs); the butterflies
+// (17-19 real transforms a frame) are the operation bound.  The design it
+// replaces, a block-wide radix-2 FFT with a block barrier per stage (~63 a
+// frame), took 6.472 ms (core) and 8.727 ms (postfilter) on an H100 at
+// 700 W (PERF.md's kernel table keeps both times).  No tensor cores
+// (flms_fft.cuh).
 #include <cuda_runtime.h>
 
-#include "flms_lane.cuh"
+#include "flms_fft.cuh"
 
 // Field order and types are mirrored by _TdgscParams in ops/cuda_flms.py.
 struct TdgscParams {
@@ -50,93 +58,124 @@ struct TdgscParams {
 
 namespace {
 
+// One slot of the input ring, in floats: the C blocking-matrix blocks, the
+// desired block, the FBF power and (kPF) the C reference powers.
+__host__ __device__ __forceinline__ int slot_floats(int C, int Lf, bool pf) {
+  return round4(C * Lf) + round4(Lf) + round4(Lf + 1) + (pf ? round4(C * (Lf + 1)) : 0);
+}
+
 // Shared memory in floats; the kernel carves it in this order.
 size_t smem_floats(int C, int Lf, bool pf) {
   const size_t N = 2 * Lf, F = Lf + 1, hop = Lf;
-  size_t n = (2 * C + 2) * N * 2 + N + C * Lf + F + 5 * F + F + F + hop;
-  if (pf) n += N + 2 * hop + (1 + C) * F + 2 * F + 5 * (1 + C) * F + F + C * F + 3 * F;
+  const size_t nQ = (C + 1) / 2;  // the pairs of Gb (C odd)
+  size_t n = 2 * (size_t)slot_floats(C, Lf, pf) + (C + nQ + 1) * N * 2 + N + C * Lf + 7 * F + 3 * kFrameWarps;
+  if (pf) n += N + 2 * hop + F + 2 * F + 5 * (1 + C) * F + F + C * F + 3 * F;
   return n;
 }
 
 // bm [B, C, T*Lf], d [B, T*Lf], yp [B, T, F], up [B, C, T, F] (kPF),
 // tabs [N/2 twiddles as (cos, sin) | N window] -> out [B, T*Lf], p [B, T, F]
 template <int C, bool kPF>
-__global__ void __launch_bounds__(kThreads) tdgsc_kernel(const float* __restrict__ bm, const float* __restrict__ d,
-                                                         const float* __restrict__ yp, const float* __restrict__ up,
-                                                         const float* __restrict__ tabs, float* __restrict__ out,
-                                                         float* __restrict__ pout, int T, int Lf, int logN,
-                                                         TdgscParams prm) {
+__global__ void __launch_bounds__(kFrameThreads, 1) tdgsc_kernel(const float* __restrict__ bm, const float* __restrict__ d,
+                                                              const float* __restrict__ yp, const float* __restrict__ up,
+                                                              const float* __restrict__ tabs, float* __restrict__ out,
+                                                              float* __restrict__ pout, int T, int Lf, int logN,
+                                                              TdgscParams prm) {
+  static_assert(C & 1, "built for C = 1, 3, 7: the postfiltered beam pairs with gradient C - 1");
   extern __shared__ float4 smem4[];
+  // gradient pairs (the last one's second signal is the postfiltered beam,
+  // or zero), then constrained-gradient and update pairs
+  constexpr int nQ = (C + 1) / 2;
   const int N = 2 * Lf, hop = Lf, F = Lf + 1;
   const int tid = threadIdx.x;
   const size_t S = (size_t)T * hop;
-  float2* Xb = reinterpret_cast<float2*>(smem4);  // [C][N] BM spectra, then the constrained gradients
-  float2* Wb = Xb + C * N;                         // [C][N] tap spectra, then gradients / updates
-  float2* Pb = Wb + C * N;                         // [N] postfilter analysis and synthesis (after Wb)
-  float2* Eb = Pb + N;                             // [N] output inverse, then the error spectrum
-  float2* tw = Eb + N;                             // [N/2]
-  float* wt = reinterpret_cast<float*>(tw + N / 2);  // [C][Lf] taps
-  float* Pw = wt + C * Lf;                         // [F] FLMS power
-  float* ms = Pw + F;                              // [5][F] MCRA S, Smin, Stmp, P, Lam
-  float* gate = ms + 5 * F;                        // [F] per-bin step gate
-  float* fp = gate + F;                            // [F] this frame's FBF power
-  float* esm = fp + F;                             // [hop] this frame's canceller output
-  float* win = esm + hop;                          // postfilter: [N] window
-  float* prev = win + N;                           // [hop] previous canceller output block
-  float* ola = prev + hop;                         // [hop] overlap-add tail
-  float* pw = ola + hop;                           // [1+C][F] beam and reference powers
-  float* ybr = pw + (1 + C) * F;                   // [F] beam spectrum
-  float* ybi = ybr + F;                            // [F]
-  float* oms = ybi + F;                            // [5][1+C][F] OM-LSA's MCRA trackers
-  float* zY = oms + 5 * (1 + C) * F;               // [F] zeta_Y
-  float* zU = zY + F;                              // [C][F] zeta_U
-  float* olam = zU + C * F;                        // [F] noise PSD
-  float* ogam = olam + F;                          // [F] gamma carry
-  float* ogh1 = ogam + F;                          // [F] G_H1 carry
+  const int slot = slot_floats(C, Lf, kPF);
+  const int o_d = round4(C * hop), o_y = o_d + round4(hop), o_u = o_y + round4(F);
+  float* ring = reinterpret_cast<float*>(smem4);       // [2][slot] this and the next frame's inputs
+  float2* Z = reinterpret_cast<float2*>(ring + 2 * slot);  // [C][N] x_c + i w_c; then the nQ constrained pairs
+  float2* Gb = Z + C * N;                             // [nQ][N] output inverse (Gb[0]); gradient, then update pairs
+  float2* E2 = Gb + nQ * N;                           // [N] error + i postfilter analysis
+  float2* tw = E2 + N;                                // [N/2]
+  float* wt = reinterpret_cast<float*>(tw + N / 2);    // [C][Lf] taps
+  float* Pw = wt + C * Lf;                             // [F] FLMS power
+  float* ms = Pw + F;                                  // [5][F] MCRA S, Smin, Stmp, P, Lam
+  float* gate = ms + 5 * F;                            // [F] per-bin step gate
+  float* win = gate + F;                               // postfilter: [N] window
+  float* prev = win + N;                               // [hop] previous canceller output block
+  float* ola = prev + hop;                             // [hop] overlap-add tail
+  float* pw0 = ola + hop;                              // [F] beam power
+  float* ybr = pw0 + F;                                // [F] beam spectrum
+  float* ybi = ybr + F;                                // [F]
+  float* oms = ybi + F;                                // [5][1+C][F] OM-LSA's MCRA trackers
+  float* zY = oms + 5 * (1 + C) * F;                   // [F] zeta_Y
+  float* zU = zY + F;                                  // [C][F] zeta_U
+  float* olam = zU + C * F;                            // [F] noise PSD
+  float* ogam = olam + F;                              // [F] gamma carry
+  float* ogh1 = ogam + F;                              // [F] G_H1 carry
+  float* redx = kPF ? ogh1 + F : gate + F;             // [2][kFrameWarps] max |x| of a frame's analyses
+  float* redw = redx + 2 * kFrameWarps;                // [kFrameWarps] max |w| of the taps
 
   const float* bmb = bm + (size_t)blockIdx.x * C * S;
   const float* db = d + (size_t)blockIdx.x * S;
   float* ob = out + (size_t)blockIdx.x * S;
+  // the next frame's inputs into ring slot t & 1
+  auto prefetch = [&](int t) {
+    float* sl = ring + (t & 1) * slot;
+    for (int c = 0; c < C; ++c) prefetch_floats(sl + c * hop, bmb + c * S + (size_t)t * hop, hop);
+    prefetch_floats(sl + o_d, db + (size_t)t * hop, hop);
+    prefetch_floats(sl + o_y, yp + ((size_t)blockIdx.x * T + t) * F, F);
+    if (kPF)
+      for (int c = 0; c < C; ++c) prefetch_floats(sl + o_u + c * F, up + (((size_t)blockIdx.x * C + c) * T + t) * F, F);
+    copy_async_commit();
+  };
+  prefetch(0);
   const float2* twg = reinterpret_cast<const float2*>(tabs);
-  for (int i = tid; i < N / 2; i += kThreads) tw[i] = twg[i];
-  for (int i = tid; i < C * Lf; i += kThreads) wt[i] = 0.f;
-  for (int i = tid; i < 6 * F; i += kThreads) Pw[i] = 0.f;  // Pw and the MCRA state
+  for (int i = tid; i < N / 2; i += kFrameThreads) tw[i] = twg[i];
+  for (int i = tid; i < C * Lf; i += kFrameThreads) wt[i] = 0.f;
+  for (int i = tid; i < 3 * kFrameWarps; i += kFrameThreads) redx[i] = 0.f;  // redx and redw
+  for (int i = tid; i < 6 * F; i += kFrameThreads) Pw[i] = 0.f;  // Pw and the MCRA state
   if (kPF) {
-    for (int i = tid; i < N; i += kThreads) win[i] = tabs[N + i];
-    for (int i = tid; i < 2 * hop; i += kThreads) prev[i] = 0.f;  // prev and ola
-    for (int i = tid; i < 5 * (1 + C) * F; i += kThreads) oms[i] = 0.f;
-    for (int k = tid; k < F; k += kThreads) {
+    for (int i = tid; i < N; i += kFrameThreads) win[i] = tabs[N + i];
+    for (int i = tid; i < 2 * hop; i += kFrameThreads) prev[i] = 0.f;  // prev and ola
+    for (int i = tid; i < 5 * (1 + C) * F; i += kFrameThreads) oms[i] = 0.f;
+    for (int k = tid; k < F; k += kFrameThreads) {
       zY[k] = 1.f;
       olam[k] = 0.f;
       ogam[k] = ogh1[k] = 1.f;
     }
-    for (int i = tid; i < C * F; i += kThreads) zU[i] = 0.f;
+    for (int i = tid; i < C * F; i += kFrameThreads) zU[i] = 0.f;
   }
   const float invN = 1.f / (float)N;
+  copy_async_wait_all();
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    // ---- load: BM buffers [b_{t-1}, b_t] and taps, bit-reversed; powers
-    for (int i = tid; i < C * N; i += kThreads) {
+    const float* cur = ring + (t & 1) * slot;
+    const float* old = ring + ((t + 1) & 1) * slot;  // frame t - 1's blocks
+    const float* fp = cur + o_y;
+    // ---- load: x_c = [b_{t-1}, b_t] + i 2^e w_c, bit-reversed
+    float mx = 0.f, mw = 0.f;
+    for (int w = 0; w < kFrameWarps; ++w) {
+      mx = fmaxf(mx, redx[((t + 1) & 1) * kFrameWarps + w]);
+      mw = fmaxf(mw, redw[w]);
+    }
+    const int e = pack_exponent(mx, mw);
+    const float ws = ldexpf(1.f, e), inv_ws = ldexpf(1.f, -e);
+    float lx = 0.f;
+    for (int i = tid; i < C * N; i += kFrameThreads) {
       const int c = i >> logN, n = i & (N - 1);
-      const float* src = bmb + (size_t)c * S;
-      const float x = n < hop ? (t > 0 ? src[(size_t)(t - 1) * hop + n] : 0.f) : src[(size_t)t * hop + n - hop];
-      const int r = c * N + bitrev(n, logN);
-      Xb[r] = make_float2(x, 0.f);
-      Wb[r] = make_float2(n < Lf ? wt[c * Lf + n] : 0.f, 0.f);
+      const float x = n < hop ? (t > 0 ? old[c * hop + n] : 0.f) : cur[c * hop + n - hop];
+      lx = fmaxf(lx, fabsf(x));
+      Z[c * N + swz(bitrev(n, logN), logN)] = make_float2(x, n < Lf ? ws * wt[c * Lf + n] : 0.f);
     }
-    for (int k = tid; k < F; k += kThreads) fp[k] = yp[((size_t)blockIdx.x * T + t) * F + k];
-    if (kPF) {
-      for (int i = tid; i < C * F; i += kThreads) {
-        const int c = i / F, k = i - c * F;
-        pw[(1 + c) * F + k] = up[(((size_t)blockIdx.x * C + c) * T + t) * F + k];
-      }
-    }
+    warp_max_partial(lx, redx + (t & 1) * kFrameWarps);
     __syncthreads();
-    fft_stages(Xb, 2 * C, N, logN, tw, false);  // X_c and W_c
+    if (t + 1 < T) prefetch(t + 1);  // into frame t - 1's slot, read for the last time above
+    fft_batch<false>(Z, C, N, logN, tw);
+    __syncthreads();
 
     // ---- per bin: MCRA and the step gate, filter output, FLMS power
-    for (int k = tid; k < F; k += kThreads) {
+    for (int k = tid; k < F; k += kFrameThreads) {
       const BinKind bk = bin_kind(k, F);
       McraLane m = load_mcra(ms, F, k);
       const float Sf = prm.b0 * fp[k > 0 ? k - 1 : 0] + prm.b1 * fp[k] + prm.b2 * fp[k < F - 1 ? k + 1 : F - 1];
@@ -150,77 +189,81 @@ __global__ void __launch_bounds__(kThreads) tdgsc_kernel(const float* __restrict
       float yr = 0.f, yi = 0.f, pwr = 0.f;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const float2 X = Xb[c * N + k], W = Wb[c * N + k];
+        float2 X, W;
+        split_pair(Z + c * N, k, N, logN, X, W);
+        W = make_float2(W.x * inv_ws, W.y * inv_ws);
         yr = yr + (X.x * W.x - X.y * W.y);
         yi = yi + (X.x * W.y + X.y * W.x);
         pwr = pwr + (X.x * X.x + X.y * X.y);
       }
       Pw[k] = fmaxf(prm.alpha * Pw[k] + prm.one_m_alpha * pwr, 1e-4f);
-      put_half(Eb, k, N, logN, yr, yi);
+      put_pair(Gb, k, N, logN, make_float2(yr, yi), make_float2(0.f, 0.f));
     }
     __syncthreads();
-    fft_stages(Eb, 1, N, logN, tw, true);
+    fft_batch<true>(Gb, 1, N, logN, tw);
+    __syncthreads();
 
-    // ---- canceller output: the last hop of the inverse, from the delayed FBF
-    for (int n = tid; n < hop; n += kThreads) {
-      const float e = db[(size_t)t * hop + n] - Eb[hop + n].x * invN;
-      esm[n] = e;
+    // ---- canceller output e (the last hop of the inverse, from the delayed
+    // FBF); error spectrum input [0; e] + i postfilter analysis input w [prev; e]
+    for (int n = tid; n < hop; n += kFrameThreads) {
+      const float e = cur[o_d + n] - Gb[swz(hop + n, logN)].x * invN;
       if (!kPF) ob[(size_t)t * hop + n] = e;
+      E2[swz(bitrev(n, logN), logN)] = make_float2(0.f, kPF ? win[n] * prev[n] : 0.f);
+      E2[swz(bitrev(n + hop, logN), logN)] = make_float2(e, kPF ? win[n + hop] * e : 0.f);
+      if (kPF) prev[n] = e;
     }
     __syncthreads();
-    // ---- error spectrum input [0; e]; postfilter analysis input w [prev; e]
-    for (int n = tid; n < N; n += kThreads) {
-      const int r = bitrev(n, logN);
-      Eb[r] = make_float2(n < hop ? 0.f : esm[n - hop], 0.f);
-      if (kPF) Pb[r] = make_float2(win[n] * (n < hop ? prev[n] : esm[n - hop]), 0.f);
-    }
+    fft_batch<false>(E2, 1, N, logN, tw);
     __syncthreads();
-    if (kPF)
-      fft_stages(Pb, 2, N, logN, tw, false);  // Pb and Eb are adjacent
-    else
-      fft_stages(Eb, 1, N, logN, tw, false);
 
-    // ---- per bin: gradients conj(X_c) E / P; beam spectrum and power
-    for (int k = tid; k < F; k += kThreads) {
-      const float2 E = Eb[k];
+    // ---- per bin: gradients conj(X_c) E / P in pairs; beam spectrum and power
+    for (int k = tid; k < F; k += kFrameThreads) {
+      float2 E, Y;
+      split_pair(E2, k, N, logN, E, Y);
       const float P = Pw[k];
+      float2 gr[2 * nQ];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float2 X = Xb[c * N + k];
-        put_half(Wb + c * N, k, N, logN, (X.x * E.x + X.y * E.y) / P, (X.x * E.y - X.y * E.x) / P);
+      for (int c = 0; c < 2 * nQ; ++c) {
+        gr[c] = make_float2(0.f, 0.f);
+        if (c < C) {
+          float2 X, W;
+          split_pair(Z + c * N, k, N, logN, X, W);
+          gr[c] = grad_bin(X, E, P);
+        }
       }
+#pragma unroll
+      for (int q = 0; q < nQ; ++q) put_pair(Gb + q * N, k, N, logN, gr[2 * q], gr[2 * q + 1]);
       if (kPF) {
-        const float2 Y = Pb[k];
         ybr[k] = Y.x;
         ybi[k] = Y.y;
-        pw[k] = Y.x * Y.x + Y.y * Y.y;
+        pw0[k] = Y.x * Y.x + Y.y * Y.y;
       }
     }
     __syncthreads();
 
     if (kPF) {
-      for (int n = tid; n < hop; n += kThreads) prev[n] = esm[n];
-      // ---- OM-LSA-multi: 1 + C MCRA trackers, TBRR q, gain; sqrt(G) Y
+      const float* pu = cur + o_u;  // [C][F] this frame's reference powers
+      // ---- OM-LSA-multi: 1 + C MCRA trackers, TBRR q, gain; sqrt(G) Y is real signal C
       const bool first = t == 0;
-      for (int k = tid; k < F; k += kThreads) {
+      for (int k = tid; k < F; k += kFrameThreads) {
         const BinKind bk = bin_kind(k, F);
         float mu[1 + C];
 #pragma unroll
         for (int m = 0; m <= C; ++m) {
-          const float* row = pw + m * F;
+          const float* row = m == 0 ? pw0 : pu + (m - 1) * F;
           const float Sf = prm.ob0 * row[k > 0 ? k - 1 : 0] + prm.ob1 * row[k] + prm.ob2 * row[k < F - 1 ? k + 1 : F - 1];
           McraLane st = load_mcra(oms, (1 + C) * F, m * F + k);
           float sr;
           mcra_frame(st, t, row[k], Sf, bk, prm.om, mu[m], sr);
           store_mcra(oms, (1 + C) * F, m * F + k, st);
         }
-        const float y = pw[k];
-        const float zy = first ? y : prm.o_alpha_s * zY[k] + prm.o_one_m_alpha_s * smooth_zero(pw, k, F);
+        const float y = pw0[k];
+        const float zy = first ? y : prm.o_alpha_s * zY[k] + prm.o_one_m_alpha_s * smooth_zero(pw0, k, F);
         zY[k] = zy;
         float ref_max = 0.f;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          const float* row = pw + (1 + c) * F;
+          const float* row = pu + c * F;
           const float zu = first ? row[k] : prm.o_alpha_s * zU[c * F + k] + prm.o_one_m_alpha_s * smooth_zero(row, k, F);
           zU[c * F + k] = zu;
           ref_max = c == 0 ? zu - mu[1 + c] : fmaxf(ref_max, zu - mu[1 + c]);
@@ -247,44 +290,60 @@ __global__ void __launch_bounds__(kThreads) tdgsc_kernel(const float* __restrict
           ogam[k] = gam;
           ogh1[k] = GH1;
         }
-        put_half(Pb, k, N, logN, sg * ybr[k], sg * ybi[k]);
+        add_pair_b(Gb + (C / 2) * N, k, N, logN, make_float2(sg * ybr[k], sg * ybi[k]));
       }
-      __syncthreads();
+      __syncthreads();  // postfilter only
     }
-    fft_stages(Wb, kPF ? C + 1 : C, N, logN, tw, true);  // gradients (and the postfiltered beam in Pb)
+    fft_batch<true>(Gb, nQ, N, logN, tw);  // gradients (and the postfiltered beam)
+    __syncthreads();
 
-    // ---- gradient constraint: keep the first Lf samples; postfilter synthesis
-    for (int i = tid; i < C * N; i += kThreads) {
-      const int c = i >> logN, n = i & (N - 1);
-      Xb[c * N + bitrev(n, logN)] = make_float2(n < Lf ? Wb[c * N + n].x * invN : 0.f, 0.f);
+    // ---- gradient constraint: keep the first Lf samples, in pairs; postfilter synthesis
+    for (int i = tid; i < nQ * N; i += kFrameThreads) {
+      const int q = i >> logN, n = i & (N - 1);
+      const float2 g = Gb[q * N + swz(n, logN)];
+      const bool keep = n < Lf;
+      Z[q * N + swz(bitrev(n, logN), logN)] =
+          make_float2(keep ? g.x * invN : 0.f, keep && 2 * q + 1 < C ? g.y * invN : 0.f);
     }
     if (kPF) {
-      for (int n = tid; n < hop; n += kThreads) {
-        const float f0 = Pb[n].x * invN * win[n] * prm.syn_gain;
-        const float f1 = Pb[n + hop].x * invN * win[n + hop] * prm.syn_gain;
+      const float2* sy = Gb + (C / 2) * N;
+      for (int n = tid; n < hop; n += kFrameThreads) {
+        const float f0 = sy[swz(n, logN)].y * invN * win[n] * prm.syn_gain;
+        const float f1 = sy[swz(n + hop, logN)].y * invN * win[n + hop] * prm.syn_gain;
         ob[(size_t)t * hop + n] = f0 + ola[n];
         ola[n] = f1;
       }
     }
     __syncthreads();
-    fft_stages(Xb, C, N, logN, tw, false);
+    fft_batch<false>(Z, nQ, N, logN, tw);
+    __syncthreads();
 
-    // ---- per-bin gate, back to taps, update and fir_truncate
-    for (int k = tid; k < F; k += kThreads) {
+    // ---- per-bin gate, in pairs
+    for (int k = tid; k < F; k += kFrameThreads) {
       const float g = gate[k];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float2 G = Xb[c * N + k];
-        put_half(Wb + c * N, k, N, logN, G.x * g, G.y * g);
+      for (int q = 0; q < nQ; ++q) {
+        float2 G0, G1;
+        split_pair(Z + q * N, k, N, logN, G0, G1);
+        put_pair(Gb + q * N, k, N, logN, make_float2(G0.x * g, G0.y * g),
+                 2 * q + 1 < C ? make_float2(G1.x * g, G1.y * g) : make_float2(0.f, 0.f));
       }
     }
     __syncthreads();
-    fft_stages(Wb, C, N, logN, tw, true);
-    for (int i = tid; i < C * Lf; i += kThreads) {
+    fft_batch<true>(Gb, nQ, N, logN, tw);
+    __syncthreads();
+
+    // ---- back to taps: update and fir_truncate
+    float lw = 0.f;
+    for (int i = tid; i < C * Lf; i += kFrameThreads) {
       const int c = i / Lf, n = i - c * Lf;
-      const float w_new = wt[i] + prm.mu2 * (Wb[c * N + n].x * invN);
+      const float2 u = Gb[(c >> 1) * N + swz(n, logN)];
+      const float w_new = wt[i] + prm.mu2 * (((c & 1) ? u.y : u.x) * invN);
       wt[i] = (n >= prm.ft && n < Lf - prm.ft) ? w_new : 0.f;
+      lw = fmaxf(lw, fabsf(wt[i]));
     }
+    warp_max_partial(lw, redw);
+    copy_async_wait_all();  // the next frame's inputs
     __syncthreads();
   }
 }
@@ -293,12 +352,9 @@ template <int C, bool kPF>
 cudaError_t launch(const float* bm, const float* d, const float* yp, const float* up, const float* tabs, float* out,
                    float* p, int B, int T, int Lf, int logN, const TdgscParams& prm, cudaStream_t st) {
   const size_t smem = sizeof(float) * smem_floats(C, Lf, kPF);
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(tdgsc_kernel<C, kPF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  tdgsc_kernel<C, kPF><<<B, kThreads, smem, st>>>(bm, d, yp, up, tabs, out, p, T, Lf, logN, prm);
+  const cudaError_t e = allow_smem(tdgsc_kernel<C, kPF>, smem);
+  if (e != cudaSuccess) return e;
+  tdgsc_kernel<C, kPF><<<B, kFrameThreads, smem, st>>>(bm, d, yp, up, tabs, out, p, T, Lf, logN, prm);
   return cudaGetLastError();
 }
 
@@ -316,9 +372,8 @@ extern "C" {
 // up null: the core kernel; else the postfilter variant.
 cudaError_t fused_tdgsc_launch(const void* bm, const void* d, const void* yp, const void* up, const void* tabs,
                                void* out, void* p, int C, int B, int T, int Lf, const void* params, void* stream) {
-  int logN = 1;
-  while ((1 << logN) < 2 * Lf) ++logN;
-  if (Lf < 2 || (1 << logN) != 2 * Lf || logN > 12 || B < 1 || T < 1) return cudaErrorInvalidValue;
+  const int logN = log2_of_twice(Lf);
+  if (logN < 0 || B < 1 || T < 1) return cudaErrorInvalidValue;
   const TdgscParams prm = *static_cast<const TdgscParams*>(params);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bm);

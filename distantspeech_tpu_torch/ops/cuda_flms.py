@@ -43,10 +43,13 @@ pinned closed form, and the OM-LSA smoothing is zero-padded.
 
 The plain version computes every transform as a dense product against the
 packed DFT matrices of the JAX kernel (``plain_dft_packed``,
-``windowed_dft_packed``); the kernel computes them as radix-2 FFTs.  The
-two round differently; the canceller's small-step LMS does not compound
-the gap.  The TPU knobs ``t_chunk``, ``sub``, ``unroll`` and ``_stages``
-are dropped (the result does not depend on them), and any B >= 1 is taken.
+``windowed_dft_packed``); K5 and K8 compute them as FFTs owned by one warp
+or a warp pair, two real transforms packed into each complex one
+(``csrc/flms_fft.cuh``), K6 as the block-wide radix-2 FFT of
+``csrc/flms_lane.cuh``.  The two round differently; the canceller's
+small-step LMS does not compound the gap.  The TPU knobs ``t_chunk``,
+``sub``, ``unroll`` and ``_stages`` are dropped (the result does not depend
+on them), and any B >= 1 is taken.
 """
 
 from __future__ import annotations

@@ -26,7 +26,8 @@ from distantspeech_tpu_torch.runtime import profiling
 from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, full_stack_process
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "distantspeech_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "distantspeech_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "scripts").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "distantspeech_tpu")
 
 
