@@ -14,9 +14,10 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    Bennett path and one re-anchor): both kernels in 'ldl' and 'rank1' mode
    with the guard off (< 1e-3 of max|y|) and the benched config (< 2e-2,
    the vad_guard decision-flip tolerance: the guard thresholds a raw ratio,
-   so an ulp of difference can flip a lane's hold/update decision); and the
-   benched kernel against the port's own per-frame scan path (float64,
-   B=2) with the same two gates as bench.py;
+   so an ulp of difference can flip a lane's hold/update decision);
+   ``fused_enhance_full`` at n_fft=512 (two bins a lane thread) with 2 and
+   4 mics, B=4 x 2 s, guard off (< 1e-3); and the benched kernel against the port's own
+   per-frame scan path (float64, B=2) with the same two gates as bench.py;
 4. the main path at full size, through the user entry point:
    ``enhance_process(x, ArrayGeometry.linear(8, 0.032), (90, 0),
    EnhanceConfig(), backend="mega", inv_mode="rank1")`` on B=64 x 8 mics x
@@ -86,7 +87,13 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    8 x 4 s of a source reaching mic m m samples late (one K10 launch; the
    summed spectrum's pick within 3 degrees of arccos(c / (0.032 fs)) or its
    mirror); timings;
-14. the ``kernels`` JSON line, the card line, and the final JSON line.
+14. the JAX package's parity protocol (``benchmarks/pipelines.py``'s gates:
+   B=2 utterances of standard normal noise, the first draw of seed 1, 16384
+   samples a mic; the fused path against the float32 ``scan`` on the card)
+   for the rows of K4 and K7: ``enhance_mega`` (guarded, rank1) held to its
+   JAX ``gate_rel`` of 1.94e-03, and ``full_stack_fused`` printed beside its
+   5.6e-06 with each stage's gap and K7's flipped transfer decisions;
+15. the ``kernels`` JSON line, the card line, and the final JSON line.
 """
 
 from __future__ import annotations
@@ -300,6 +307,7 @@ def main() -> int:
     kernels += smoke_slice_c(dev, card, B=128, seconds=4)
     kernels += smoke_k9(dev, card, B=128, seconds=4)
     kernels += smoke_k10(dev, card, B=8, seconds=4)
+    smoke_gate_rel(dev, card)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -336,6 +344,7 @@ def smoke(dev, card: str, B: int, seconds: int) -> list:
     from distantspeech_tpu_torch.beamform.mvdr import MvdrConfig
     from distantspeech_tpu_torch.ops import cuda_enhance as ce
     from distantspeech_tpu_torch.runtime.profiling import benchmark, cuda_seconds
+    from distantspeech_tpu_torch.transform.stft import StftConfig
 
     tag = f"[{card}]"
     # ---- 3. kernel vs plain ----------------------------------------------------
@@ -372,6 +381,18 @@ def smoke(dev, card: str, B: int, seconds: int) -> list:
     for kname in ("fused_enhance", "fused_enhance_full"):
         rel, _ = rel_err(outs[(kname, "rank1", "guard off")], outs[(kname, "ldl", "guard off")])
         check(rel > 0, f"{kname} rank1 differs from ldl (rel {rel:.3e}): the Bennett path ran")
+
+    # n_fft 512 (two bins a lane thread, 2 and 4 mics), guard off, B=4 x 2 s:
+    # T=125 -> t_chunk 25, 3 warm chunks, the Bennett path and one re-anchor
+    for M5 in (2, 4):
+        c512 = EnhanceConfig(mvdr=MvdrConfig(**{**nog_cfg.mvdr.__dict__, "stft": StftConfig(512, 256)}))
+        x5 = torch.as_tensor(scene(4, M5, 2 * FS, seed=3)[0], device=dev)
+        st5 = steering_vector(ArrayGeometry.linear(M5, 0.032), np.asarray(look) / 180.0 * np.pi, 512).astype(np.complex64)
+        want = ce.fused_enhance_plain(x5, st5, c512, 25, "rank1")
+        got = ce.fused_enhance_full(x5, st5, c512, 25, "rank1")
+        rel, mx = rel_err(got, want)
+        check(bool(torch.isfinite(got).all()) and rel < TIGHT,
+              f"fused_enhance_full rank1 guard off, n_fft=512, M={M5} vs plain: rel {rel:.3e} (max abs {mx:.3e}) < {TIGHT:g}")
 
     x2 = xg[:2].contiguous()
     for cname, cfg, tol in (("guard off", nog_cfg, TIGHT), ("benched", bench_cfg, FLIP)):
@@ -435,7 +456,8 @@ def smoke(dev, card: str, B: int, seconds: int) -> list:
     for mode in ("rank1", "ldl"):
         per = benchmark(ce.fused_enhance_full, x, steer, cfg, tc, mode)["per_call_s"]
         times[("fused_enhance_full", mode)] = per
-        print(f"fused_enhance_full {mode}: {per * 1e3:.3f} ms/call, {audio_s / per:.0f} audio-s/s (B={B}, M={M}, {S // FS} s) {tag}", flush=True)
+        print(f"fused_enhance_full {mode}: {per * 1e3:.3f} ms/call, {per * 1e6 / T:.2f} us a frame, "
+              f"{audio_s / per:.0f} audio-s/s (B={B}, M={M}, {S // FS} s) {tag}", flush=True)
     per = benchmark(ce.fused_enhance, x, steer, cfg, tc, "rank1")["per_call_s"]
     print(f"fused_enhance wrapper rank1 (matmuls + kernel): {per * 1e3:.3f} ms/call, {audio_s / per:.0f} audio-s/s {tag}", flush=True)
     for mode in ("rank1", "ldl"):
@@ -978,6 +1000,9 @@ def smoke_slice_c(dev, card: str, B: int, seconds: int) -> list:
     for name, fn in stages:
         ms[name] = benchmark(fn)["per_call_s"] * 1e3
         print(f"B3 stage {name}: {ms[name]:.3f} ms/call {tag}", flush=True)
+    print(f"fused_aec: {ms['K7 fused_aec'] * 1e3 / T:.2f} us a frame; launch layout at hop {acfg.block_len}, "
+          f"num_block {acfg.num_block} (mics a block, shared memory): "
+          + ", ".join(f"M={m}: {ca.launch_layout(acfg, m)}" for m in (1, 2, 4, 8, 9)), flush=True)
     t_path = benchmark(full_stack_process, x, far, geom, look, fcfg, "fused")["per_call_s"]
     print(f"full_stack_process fused end to end: {t_path * 1e3:.3f} ms/call, {B * S / FS / t_path:.0f} audio-s/s "
           f"(B={B}, M={M}, {seconds} s); plain K7 {aec_plain_ms:.1f} ms, K6 {kws_plain_ms:.1f} ms {tag}", flush=True)
@@ -1334,6 +1359,71 @@ def smoke_k10(dev, card: str, B: int, seconds: int) -> list:
              "replaces": "distantspeech_tpu/ops/pallas_srp.py:29", "launches": counts["fused_srp_spectrum"],
              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
              "library_ms": lib_ms}]
+
+
+def smoke_gate_rel(dev, card: str) -> None:
+    """Phase 14: the JAX package's on-device parity protocol
+    (benchmarks/pipelines.py's gates) on the port, for the rows whose kernels
+    K4 and K7 carry: B=2 utterances of standard normal noise (the first draw
+    of seed 1, 16384 samples a mic), the fused path against the float32
+    ``scan`` path on the card, rel = max |fused - scan| / max |scan|, printed
+    beside the row's JAX ``gate_rel`` (PIPELINES_r05.json)."""
+    import torch
+
+    from distantspeech_tpu_torch.adaptive.aec import aec_init, aec_step
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+    from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, enhance_process
+    from distantspeech_tpu_torch.ops import cuda_aec as ca
+    from distantspeech_tpu_torch.ops import cuda_flms as cf
+    from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, full_stack_process
+
+    t_phase = time.perf_counter()
+    Sg = 16384
+
+    def draw(M):
+        return torch.as_tensor(np.random.default_rng(1).standard_normal((2, M, Sg)).astype(np.float32), device=dev)
+
+    # enhance_mega: guarded rank-1 `mega` (K4) against the guarded `scan`
+    x = draw(8)
+    geom8 = ArrayGeometry.linear(8, 0.032)
+    ref = enhance_process(x, geom8, (90.0, 0.0), EnhanceConfig(), backend="scan", device=dev)
+    got = enhance_process(x, geom8, (90.0, 0.0), EnhanceConfig(), backend="mega", inv_mode="rank1", device=dev)
+    r = rel_err(got, ref)[0]
+    check(np.isfinite(r) and r < 1.94e-3, f"gate_rel enhance_mega (guarded, rank1; B=2, float32 scan on the card): "
+                                          f"{r:.3e} < its JAX bar 1.94e-03")
+
+    # full_stack_fused: K7 -> K6 -> K5 pf against the per-frame scan, the far
+    # end mic 0 itself (as the JAX protocol feeds it); the gap of each stage
+    x = draw(4)
+    far = x[:, 0].contiguous()
+    geom4 = ArrayGeometry.linear(4, 0.032)
+    ang = (np.pi / 2, 0.0)
+    fcfg = FullStackConfig()
+    got = full_stack_process(x, far, geom4, ang, fcfg, backend="fused", device=dev)
+    ref = full_stack_process(x, far, geom4, ang, fcfg, backend="scan", device=dev)
+    L = fcfg.frame_len
+    T = Sg // L
+    st = aec_init(fcfg.aec, (2, 4), device=dev)
+    echo_scan = []
+    for t in range(T):
+        blk = slice(t * L, (t + 1) * L)
+        st, (e, _) = aec_step(fcfg.aec, st, far[:, None, blk].expand(2, 4, L), x[..., blk])
+        echo_scan.append(e)
+    echo_scan = torch.cat(echo_scan, dim=-1)
+    farp, xp = (a.contiguous() for a in ca._prepare(far, x, fcfg.aec))
+    echo_k7, ug = ca.aec_frames(farp, xp, fcfg.aec, decisions=True)
+    _, uw = ca.aec_frames_plain(farp, xp, fcfg.aec, decisions=True)
+    # K6 and K5 alone: fed the scan's echo-free mics
+    kws_alone = cf.fused_kws(echo_scan[:, :2], fcfg.kws)
+    enh_alone = cf.fused_tdgsc(echo_scan, geom4, ang, fcfg.gsc)[0]
+    torch.cuda.synchronize()
+    print(f"gate_rel full_stack_fused (B=2, far end = mic 0, float32 scan on the card): enhanced {rel_err(got[0], ref[0])[0]:.3e} "
+          f"against its JAX bar 5.6e-06, kws_clean {rel_err(got[1], ref[1])[0]:.3e}, p max abs "
+          f"{float((got[2] - ref[2]).abs().max()):.3e}; by stage, against the scan's: K7's echo-free mics "
+          f"{rel_err(echo_k7, echo_scan)[0]:.3e}, K6 alone {rel_err(kws_alone, ref[1])[0]:.3e}, K5 pf alone "
+          f"{rel_err(enh_alone, ref[0])[0]:.3e}; K7's transfer decisions: {int((ug != uw).sum())} of {uw.numel()} "
+          f"differ from its plain version's", flush=True)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -2,6 +2,7 @@ from distantspeech_tpu_torch.array.alignment import fractional_delay_filter_bank
 from distantspeech_tpu_torch.array.coherence import diffuse_coherence
 from distantspeech_tpu_torch.array.geometry import (
     ArrayGeometry,
+    cart2sph,
     circular_array,
     linear_array,
     sph2cart,
@@ -10,6 +11,7 @@ from distantspeech_tpu_torch.array.steering import compute_tau, omega_bins, stee
 
 __all__ = [
     "ArrayGeometry",
+    "cart2sph",
     "sph2cart",
     "linear_array",
     "circular_array",

@@ -15,6 +15,14 @@ SOUND_SPEED = 343.0
 DEFAULT_FS = 16000
 
 
+def cart2sph(x, y, z):
+    """Cartesian -> (azimuth, elevation, radius), angles in radians."""
+    azimuth = np.arctan2(y, x)
+    elevation = np.arctan2(z, np.sqrt(x**2 + y**2))
+    r = np.sqrt(x**2 + y**2 + z**2)
+    return azimuth, elevation, r
+
+
 def sph2cart(azimuth, elevation, r):
     """(azimuth, elevation, radius) -> Cartesian, angles in radians."""
     x = r * np.cos(elevation) * np.cos(azimuth)

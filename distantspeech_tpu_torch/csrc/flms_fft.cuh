@@ -1,7 +1,8 @@
-// The frame-loop pieces of the redesigned FLMS kernels K5 (flms.cu) and K8
-// (fdgsc.cu): a complex FFT owned by one warp (or a few warps) instead of the
-// whole block, two real transforms packed into one complex FFT, and the
-// asynchronous prefetch of the next frame's inputs into shared memory.
+// The frame-loop pieces of the redesigned kernels K5 (flms.cu), K8
+// (fdgsc.cu), K7 (aec.cu) and K4 (enhance.cu's mega kernel): a complex FFT
+// owned by one warp (or a few warps) instead of the whole block, two real
+// transforms packed into one complex FFT, and the asynchronous prefetch of
+// the next frame's inputs into shared memory.
 //
 // The transform.  Each N-point sequence (N = 2^logN, 4 <= N <= 4096) lies in
 // shared memory in bit-reversed order, point p at swz(p): p with its low four
@@ -43,7 +44,7 @@
 
 namespace {
 
-// Threads per block of K5 and K8: 512 beat 256 for all three kernels on an
+// Threads per block of K5, K8 and K7: 512 beat 256 for K5 and K8 on an
 // H100 (PERF.md, measured with scripts/flms_variants.py on a copy of these
 // sources with 256 here).  One block per SM: the kernels declare
 // __launch_bounds__(kFrameThreads, 1), since left free ptxas halves the
@@ -80,20 +81,34 @@ __device__ __forceinline__ int swz(int p, int logN) { return p ^ ((p >> max(logN
 // n rounded up to a multiple of 4 floats (16 bytes).
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
-// Issues the copy of n floats from src (global) to dst (shared) by the
-// block's threads; the copy lands at copy_async_wait_all.
-__device__ __forceinline__ void prefetch_floats(float* dst, const float* src, int n) {
+// Issues the copy of n floats from src (global) to dst (shared) by the nthr
+// threads of a group (this one of rank r); each thread's copies land at its
+// copy_async_wait_all.
+__device__ __forceinline__ void prefetch_floats(float* dst, const float* src, int n, int r, int nthr) {
   if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0 && (n & 3) == 0) {
-    for (int i = threadIdx.x; i < n / 4; i += kFrameThreads) copy_async16(dst + 4 * i, src + 4 * i);
+    for (int i = r; i < n / 4; i += nthr) copy_async16(dst + 4 * i, src + 4 * i);
   } else {
-    for (int i = threadIdx.x; i < n; i += kFrameThreads) copy_async4(dst + i, src + i);
+    for (int i = r; i < n; i += nthr) copy_async4(dst + i, src + i);
   }
 }
 
+// The same by the block's kFrameThreads threads.
+__device__ __forceinline__ void prefetch_floats(float* dst, const float* src, int n) {
+  prefetch_floats(dst, src, n, threadIdx.x, kFrameThreads);
+}
+
+// Point p of a sequence, in its bit-reversed, swizzled layout in a: the
+// input of a transform run in place.
+struct InPlace {
+  __device__ __forceinline__ float2 operator()(const float2* a, int p, int logN) const { return a[swz(p, logN)]; }
+};
+
 // One pass: radix-2 stages s0 .. s0 + K - 1 of fft_stages, each butterfly's
-// 2^K points (spaced 2^(s0-1) apart) in registers, by thread r of nthr.
-template <int K, bool kInv>
-__device__ __forceinline__ void fft_pass(float2* a, int logN, int s0, const float2* tw, int r, int nthr) {
+// 2^K points (spaced 2^(s0-1) apart) in registers, by thread r of nthr; the
+// points read as load(a, p, logN) (p a bit-reversed position), written to a.
+template <int K, bool kInv, class Load = InPlace>
+__device__ __forceinline__ void fft_pass(float2* a, int logN, int s0, const float2* tw, int r, int nthr,
+                                         const Load& load = Load()) {
   constexpr int P = 1 << K;
   const int half = 1 << (s0 - 1);
   const int nb = (1 << logN) >> K;
@@ -102,7 +117,7 @@ __device__ __forceinline__ void fft_pass(float2* a, int logN, int s0, const floa
     const int base = ((b >> (s0 - 1)) << (s0 - 1 + K)) + pos;
     float2 x[P];
 #pragma unroll
-    for (int j = 0; j < P; ++j) x[j] = a[swz(base + j * half, logN)];
+    for (int j = 0; j < P; ++j) x[j] = load(a, base + j * half, logN);
 #pragma unroll
     for (int m = 0; m < K; ++m) {
       const int sh = logN - (s0 + m);
@@ -124,24 +139,51 @@ __device__ __forceinline__ void fft_pass(float2* a, int logN, int s0, const floa
   }
 }
 
+// The pass from stage s0 on: radix-8, or the radix-4 or radix-2 that closes
+// a transform whose log2 N is not a multiple of 3.
+template <bool kInv, class Load = InPlace>
+__device__ __forceinline__ void fft_pass_at(float2* a, int logN, int s0, const float2* tw, int r, int nthr,
+                                            const Load& load = Load()) {
+  const int k = logN - s0 + 1;
+  if (k >= 3)
+    fft_pass<3, kInv>(a, logN, s0, tw, r, nthr, load);
+  else if (k == 2)
+    fft_pass<2, kInv>(a, logN, s0, tw, r, nthr, load);
+  else
+    fft_pass<1, kInv>(a, logN, s0, tw, r, nthr, load);
+}
+
+// The sync between two passes of a sequence owned by nthr threads.
+__device__ __forceinline__ void seq_sync(int nthr, int id) {
+  if (nthr == 32)
+    __syncwarp();
+  else
+    group_sync(id, nthr);
+}
+
 // One N-point sequence (bit-reversed in, natural out, unscaled inverse) by
 // the nthr threads of a group; rank r, named barrier id for nthr > 32.
 template <bool kInv>
 __device__ void fft_seq(float2* a, int logN, const float2* tw, int r, int nthr, int id) {
   for (int s0 = 1; s0 <= logN; s0 += 3) {
-    const int k = logN - s0 + 1;
-    if (k >= 3)
-      fft_pass<3, kInv>(a, logN, s0, tw, r, nthr);
-    else if (k == 2)
-      fft_pass<2, kInv>(a, logN, s0, tw, r, nthr);
-    else
-      fft_pass<1, kInv>(a, logN, s0, tw, r, nthr);
-    if (s0 + 3 <= logN) {
-      if (nthr == 32)
-        __syncwarp();
-      else
-        group_sync(id, nthr);
-    }
+    fft_pass_at<kInv>(a, logN, s0, tw, r, nthr);
+    if (s0 + 3 <= logN) seq_sync(nthr, id);
+  }
+}
+
+// The same for a sequence whose input is not in a: the first pass reads
+// point p (a bit-reversed position) as first(a, p, logN), so that a
+// transform can window, pack or extend its input as it loads it, without a
+// pass of bit-reversed stores before it.  Inlined, so that a caller with a
+// compile-time logN and nthr gets its index arithmetic folded.
+template <bool kInv, class First>
+__device__ __forceinline__ void fft_seq_from(float2* a, int logN, const float2* tw, int r, int nthr, int id,
+                                             const First& first) {
+  fft_pass_at<kInv>(a, logN, 1, tw, r, nthr, first);
+#pragma unroll
+  for (int s0 = 4; s0 <= logN; s0 += 3) {
+    seq_sync(nthr, id);
+    fft_pass_at<kInv>(a, logN, s0, tw, r, nthr);
   }
 }
 

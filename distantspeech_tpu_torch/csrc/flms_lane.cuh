@@ -1,12 +1,13 @@
 // Shared pieces of the FLMS-family kernels (K5 flms.cu, K6 kws.cu, K7
-// aec.cu, K8 fdgsc.cu): the shared-memory radix-2 FFT, the half-spectrum
-// helpers, the MCRA state in shared memory, and a block reduction.
+// aec.cu, K8 fdgsc.cu; K9 sgsc.cu and K4 enhance.cu use some): the
+// shared-memory radix-2 FFT, the half-spectrum helpers, the MCRA state in
+// shared memory, and a block reduction.
 //
-// Every kernel that includes this runs kThreads threads per block, one
-// block per utterance (or per utterance and mic), and does each 2L-point
-// transform of its frame loop as an in-place FFT in shared memory: a real
-// signal as a complex FFT with zero imaginary part, a half spectrum through
-// its hermitian extension (put_half).  The twiddles come from the host with
+// A kernel that runs its transforms through fft_stages (K6, K9) runs
+// kThreads threads per block, one block per utterance, and does each
+// 2L-point transform of its frame loop as an in-place FFT in shared memory:
+// a real signal as a complex FFT with zero imaginary part, a half spectrum
+// through its hermitian extension (put_half).  The twiddles come from the host with
 // the exact zeros of sin and cos kept exact, so bins 0 and N/2 of a real
 // signal stay real.
 #pragma once

@@ -20,7 +20,8 @@ and F-1 are exact zeros on both sides.  The plain version computes every
 transform as a dense product against the packed DFT matrices
 (``plain_dft_packed``) and the de-emphasis as the blocked state-space
 product ``_deemph_mats``, as the JAX kernel does; the kernel computes the
-transforms as radix-2 FFTs and the de-emphasis as a block scan.  Only the
+transforms as warp-owned FFTs (the far end's once per utterance-frame) and
+the de-emphasis as a warp scan.  Only the
 causal two_path + prop + constrain configuration with ``num_block`` in
 (1, 2) is taken, as in JAX; the TPU knobs ``t_chunk``, ``sub`` and
 ``interpret`` are dropped, and any B >= 1 is taken.
@@ -244,8 +245,18 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_aec_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p]
         lib.fused_aec_launch.restype = i
+        lib.fused_aec_layout.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+        lib.fused_aec_layout.restype = i
         lib._signatures_set = True
     return lib
+
+
+def launch_layout(cfg, M: int):
+    """(mics a block holds, its dynamic shared memory in bytes) of the
+    kernel's launch for M mics; 0 mics if not even one fits."""
+    smem = ctypes.c_longlong()
+    per_block = _library().fused_aec_layout(cfg.num_block, cfg.block_len, M, ctypes.byref(smem))
+    return per_block, smem.value
 
 
 def _launch(farp, xp, cfg, out, upd, stream) -> None:
@@ -264,8 +275,9 @@ def _launch(farp, xp, cfg, out, upd, stream) -> None:
 
 def aec_frames(farp: torch.Tensor, xp: torch.Tensor, cfg, decisions: bool = False):
     """The K7 kernel: ``aec_frames_plain``'s recursion, one block per
-    (utterance, mic).  CPU tensors run ``aec_frames_plain``; CUDA tensors
-    launch the kernel (float32, contiguous) or raise."""
+    utterance (all its mics, or as many as the block's shared memory holds).
+    CPU tensors run ``aec_frames_plain``; CUDA tensors launch the kernel
+    (float32, contiguous) or raise."""
     if xp.device.type == "cpu":
         return aec_frames_plain(farp, xp, cfg, decisions)
     _check_cfg(cfg)

@@ -14,10 +14,11 @@ replace its Pallas kernels:
   and the OM-LSA gain.
 - ``fused_enhance_full`` replaces ``pallas_enhance.fused_enhance_full``
   (``_mega_kernel`` and its Nyquist companion): waveform [B, M, S] in,
-  waveform [B, S] out, one block per utterance.  Framing, the windowed DFT
-  (a direct sum per bin against shared cos/sin tables), the smoothing, the
-  lane recursion, the inverse DFT and the overlap-add all run in the block;
-  the spectra never reach device memory.
+  waveform [B, S] out, one block per utterance.  Framing, the windowed
+  analysis (the mics in pairs through complex FFTs), the smoothing, the
+  lane recursion, the inverse FFT and the overlap-add all run in the block,
+  the transforms of frames t + 1 and t - 1 on warps of their own while the
+  lane warps run frame t; the spectra never reach device memory.
 
 Both run in float32 and treat the F = n_fft/2 + 1 bins uniformly (the TPU
 kernel's Nyquist companion call and lane packing are not needed); bin F-1
@@ -31,13 +32,12 @@ therefore part of the semantics, not a tiling: kernel and plain version
 take the same value.
 
 Bounds on an H100 at the flagship size (B=64, M=8, 4 s): the mega kernel
-moves 147 MB (0.04 ms at 3.35 TB/s) and does ~4e10 float32 operations,
-mostly the DFTs (~0.6 ms at 67 TFLOP/s), so operations bound it; the lane
-kernel alone moves 314 MB of spectra for ~4e9 operations, so bytes bound
-it (~0.09 ms).  This first version is a straight per-lane recursion with
-the state in registers and makes no attempt at either bound (64 of 132 SMs
-are busy in the mega kernel at B=64); chip_smoke.py computes the bounds
-and times both.
+moves 147 MB (0.04 ms at 3.35 TB/s) and does ~5.5e9 float32 operations
+with its transforms counted as real FFTs (~0.08 ms at 67 TFLOP/s), so
+operations bound it; the lane kernel alone moves 314 MB of spectra for
+~4e9 operations, so bytes bound it (~0.09 ms).  Both run a per-lane
+recursion with the state in registers, a serial chain of frames that
+neither bound counts; chip_smoke.py computes the bounds and times both.
 
 On a CPU tensor the wrappers run ``fused_enhance_plain`` (one dtype-generic
 plain-PyTorch function with the semantics of both kernels); on a CUDA
@@ -74,7 +74,11 @@ LAUNCHES = {"fused_enhance": 0, "fused_enhance_full": 0}
 # handover, rounded up to whole frame chunks
 _RANK1_WARM_FRAMES = 64
 _KERNEL_MICS = (2, 4, 8)  # the M the CUDA templates are instantiated for
-_FULL_THREADS = 256  # threads per block of the mega kernel (one per bin, F <= 256)
+# the mega kernel's transform sizes: those of the JAX kernel (multiples of
+# 256) whose F = n_fft/2 + 1 lanes leave 3 of its block's 8 warps to the
+# FFTs, one bin a lane thread, two at n_fft 512, where the 8-mic lane state
+# would not fit twice in a thread's registers (so 512 takes 2 or 4 mics)
+_FULL_NFFT = (256, 512)
 
 
 def _pick_t_chunk(T: int, cap: int = 64):
@@ -338,8 +342,9 @@ def fused_enhance_full(x: torch.Tensor, steer, cfg, t_chunk: int = None, inv_mod
     stft = cfg.stft
     if M not in _KERNEL_MICS:
         raise ValueError(f"fused_enhance_full: the kernel is built for M in {_KERNEL_MICS}, got M={M}")
-    if stft.half_bin > _FULL_THREADS:
-        raise ValueError(f"fused_enhance_full: needs n_fft/2 + 1 <= {_FULL_THREADS}, got n_fft={stft.n_fft}")
+    if stft.n_fft not in _FULL_NFFT or (stft.n_fft == 512 and M == 8):
+        raise ValueError(f"fused_enhance_full: the kernel takes n_fft in {_FULL_NFFT} (512 with 2 or 4 mics), "
+                         f"got n_fft={stft.n_fft}, M={M}; backend='fused' runs any")
     lib = _library()
     T = S // stft.hop
     y = torch.empty((B, S), dtype=torch.float32, device=x.device)

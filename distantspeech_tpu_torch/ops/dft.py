@@ -40,8 +40,15 @@ def _inv_mat(n: int) -> np.ndarray:
     return np.concatenate([A, B], axis=0)  # [2F, n]
 
 
-def rdft(x: torch.Tensor, n: int | None = None) -> torch.Tensor:
-    """``torch.fft.rfft(x, n=n)`` over the last axis as one matrix product."""
+def _check_last(t: torch.Tensor, axis: int, what: str) -> None:
+    if axis not in (-1, t.ndim - 1):
+        raise ValueError(f"{what} only supports the last axis, got axis={axis} of a {t.ndim}-d input")
+
+
+def rdft(x: torch.Tensor, n: int | None = None, axis: int = -1) -> torch.Tensor:
+    """``torch.fft.rfft(x, n=n)`` over the last axis (the only ``axis``
+    taken, as in the JAX package) as one matrix product."""
+    _check_last(x, axis, "rdft")
     L = x.shape[-1]
     if n is None:
         n = L
@@ -56,8 +63,10 @@ def rdft(x: torch.Tensor, n: int | None = None) -> torch.Tensor:
     return torch.complex(Y[..., :F], Y[..., F:])
 
 
-def irdft(X: torch.Tensor, n: int | None = None) -> torch.Tensor:
-    """``torch.fft.irfft(X, n=n)`` over the last axis as one matrix product."""
+def irdft(X: torch.Tensor, n: int | None = None, axis: int = -1) -> torch.Tensor:
+    """``torch.fft.irfft(X, n=n)`` over the last axis (the only ``axis``
+    taken, as in the JAX package) as one matrix product."""
+    _check_last(X, axis, "irdft")
     if n is None:
         n = 2 * (X.shape[-1] - 1)
     if n > MATMUL_MAX_N or X.shape[-1] != n // 2 + 1:

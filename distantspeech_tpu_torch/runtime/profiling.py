@@ -5,14 +5,19 @@
   iteration pairs, refusing to report a non-positive or implausible slope;
 - ``benchmark``: device time of a CUDA function, measured with CUDA events
   around runs of many calls.  It needs a card: a CPU time is not a device
-  time, so there is no CPU fallback.
+  time, so there is no CPU fallback;
+- ``trace``: a ``torch.profiler`` trace of a block, written as a Chrome
+  trace;
+- ``stage_metrics``: a per-stage report of energies and speech presence.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -101,3 +106,33 @@ def benchmark(fn: Callable, *args, iters: int = 8, warmup: int = 2) -> Dict[str,
     pairs = ((base, iters), (base + 1, iters + base), (base + 2, iters + 2 * base))
     per, retries = slope_per_iter(lambda n: cuda_seconds(fn, *args, n=n), pairs=pairs)
     return {"per_call_s": per, "calls_per_s": 1.0 / per, "retries": float(retries)}
+
+
+@contextlib.contextmanager
+def trace(logdir: str = "profiler-trace"):
+    """``torch.profiler`` trace (CPU, and CUDA where there is a card) around a
+    block, written as a Chrome trace into ``logdir``; yields the profiler
+    (its ``key_averages()`` are the sums by kernel)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def stage_metrics(name: str, signal_in: np.ndarray, signal_out: np.ndarray, p: Optional[np.ndarray] = None) -> Dict:
+    """Structured per-stage report: energies, crude SNR-gain proxy, SPP stats."""
+    ein = float(np.mean(np.square(signal_in)))
+    eout = float(np.mean(np.square(signal_out)))
+    m: Dict[str, Any] = {
+        "stage": name,
+        "energy_in": ein,
+        "energy_out": eout,
+        "energy_ratio_db": 10.0 * np.log10(eout / ein) if ein > 0 else float("-inf"),
+    }
+    if p is not None:
+        m["p_mean"] = float(np.mean(p))
+        m["p_active_frac"] = float(np.mean(p > 0.5))
+    return m

@@ -40,6 +40,11 @@ def gauss_jordan_inv(A: torch.Tensor) -> torch.Tensor:
     return work[..., :, M:]
 
 
+def diag_loaded_inv(A: torch.Tensor, diag: float) -> torch.Tensor:
+    """inv(A + diag I) by the unrolled elimination."""
+    return gauss_jordan_inv(A + diag * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device))
+
+
 def ldl_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x = A^-1 b for hermitian positive-definite A [..., M, M], b [..., M]:
     unrolled LDL^H factorisation (unit lower L, real D, no sqrt) and two

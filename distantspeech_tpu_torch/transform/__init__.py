@@ -3,6 +3,7 @@ from distantspeech_tpu_torch.transform.stft import (
     analysis,
     istft_frames,
     istft_stream,
+    magphase,
     sqrt_hann_window,
     stft_frames,
     stft_init_carry,
@@ -20,4 +21,5 @@ __all__ = [
     "stft_stream",
     "istft_stream",
     "stft_init_carry",
+    "magphase",
 ]

@@ -155,3 +155,8 @@ def istft_stream(carry: torch.Tensor, Y: torch.Tensor, cfg: StftConfig) -> Tuple
 
 def stft_init_carry(batch_shape, cfg: StftConfig, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.zeros((*batch_shape, cfg.overlap), dtype=dtype, device=resolve_device(device))
+
+
+def magphase(D: torch.Tensor, power: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split a complex spectrogram into magnitude**power and unit phase."""
+    return torch.abs(D) ** power, torch.exp(1j * torch.angle(D))

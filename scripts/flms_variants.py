@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time K5 (``csrc/flms.cu``, core and postfilter) and K8 (``csrc/fdgsc.cu``)
-as built from this tree against variants of their sources, on one CUDA card.
+"""Time K5 (``csrc/flms.cu``, core and postfilter), K8 (``csrc/fdgsc.cu``)
+and K7 (``csrc/aec.cu``) as built from this tree against variants of their
+sources, on one CUDA card.
 
     python3 scripts/flms_variants.py [--edit NAME ...] [--alt CSRC_DIR ...]
 
@@ -13,15 +14,18 @@ A variant is a named edit of a copy of this tree's ``csrc/`` (``EDITS``):
 - ``block-r2``: the same with radix-2 passes, a block barrier after each of
   the log2 N stages (eight more a batch at N = 512: the barrier count of the
   block-wide ``fft_stages`` design);
+- ``aec-lead0``: K7 with every mic group's single-warp phases on its first
+  warp instead of rotated over the SM sub-partitions;
 
 or another ``csrc`` directory (``--alt``, labelled by its name).  The tree and
 every variant are compiled with nvcc for sm_90a into ``build/flms_variants/``
 (all compiles at once; ptxas's registers and spills printed per entry
 function), held to the plain versions at B=8 x 4 mics x 1 s and at the main
 paths' B=128 x 4 x 4 s with ``chip_smoke.py``'s gates (1e-3 of max|out|; the
-postfilter at full size 2e-2), then timed with CUDA events in turns (first to
-last, then last to first).  Prints one JSON line of the medians; exits
-nonzero if a build fails or a gate does not hold.
+postfilter and K7 at full size 2e-2, where decisions can flip), then timed
+with CUDA events in turns (first to last, then last to first).  Prints one
+JSON line of the medians; exits nonzero if a build fails or a gate does not
+hold.
 """
 
 from __future__ import annotations
@@ -81,16 +85,26 @@ def _block_batch(step: int):
     return edit
 
 
-EDITS = {"t256": _threads, "block-r8": _block_batch(3), "block-r2": _block_batch(1)}
+def _lead0(src: str) -> str:
+    old = "const int lead = Wm >= 4 ? (g & 3) : Wm == 2 ? ((g >> 1) & 1) : 0;"
+    if old not in src:
+        raise RuntimeError("aec.cu: no lead warp rotation to edit")
+    return src.replace(old, "const int lead = 0;")
+
+
+# name -> (the source it edits, the edit)
+EDITS = {"t256": ("flms_fft.cuh", _threads), "block-r8": ("flms_fft.cuh", _block_batch(3)),
+         "block-r2": ("flms_fft.cuh", _block_batch(1)), "aec-lead0": ("aec.cu", _lead0)}
+LIBS = ("flms", "fdgsc", "aec")
 
 
 def make_variant(name: str, out_dir: Path) -> Path:
-    """A copy of csrc/ under out_dir with edit ``name`` applied to flms_fft.cuh."""
+    """A copy of csrc/ under out_dir with edit ``name`` applied."""
     dst = out_dir / name / "src"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(CSRC, dst)
-    hdr = dst / "flms_fft.cuh"
-    hdr.write_text(EDITS[name](hdr.read_text()))
+    f, edit = EDITS[name]
+    (dst / f).write_text(edit((dst / f).read_text()))
     return dst
 
 
@@ -103,7 +117,7 @@ def build(variants):
     for label, csrc in variants.items():
         out = OUT / label
         out.mkdir(parents=True, exist_ok=True)
-        for name in ("flms", "fdgsc"):
+        for name in LIBS:
             lib = out / f"{name}.so"
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.SOURCE_FLAGS.get(name, ()),
                    "-I", str(csrc), "-o", str(lib), str(Path(csrc) / f"{name}.cu")]
@@ -125,10 +139,10 @@ def build(variants):
 
 
 def use(libs, label):
-    """Point the K5/K8 wrappers at variant label's libraries."""
+    """Point the K5/K8/K7 wrappers at variant label's libraries."""
     from distantspeech_tpu_torch.ops import _build
 
-    for name in ("flms", "fdgsc"):
+    for name in LIBS:
         _build._loaded[name] = ctypes.CDLL(str(libs[name, label]))
 
 
@@ -147,7 +161,8 @@ def main() -> int:
     from distantspeech_tpu_torch.array.geometry import ArrayGeometry
     from distantspeech_tpu_torch.beamform.fdgsc import FdGscConfig
     from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig
-    from distantspeech_tpu_torch.ops import cuda_flms as cf
+    from distantspeech_tpu_torch.ops import cuda_aec as ca, cuda_flms as cf
+    from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig
     from distantspeech_tpu_torch.runtime.profiling import benchmark
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -163,6 +178,7 @@ def main() -> int:
     geom, look = ArrayGeometry.linear(M, 0.032), (np.pi / 2, 0.0)
     k5 = {"core": TdGscConfig(n_mics=M), "postfilter": TdGscConfig(n_mics=M, postfilter=True)}
     k8 = FdGscConfig(n_mics=M)
+    k7 = FullStackConfig(n_mics=M).aec
 
     def k5_inputs(x, cfg):
         fbf, bm = cf.front_end(cf._check(x, cfg), geom, look, cfg)
@@ -180,6 +196,10 @@ def main() -> int:
             cases[f"K5 {cname}", size] = (cf.tdgsc_frames, ins, cfg, cf.tdgsc_frames_plain(*ins, cfg))
         ins = k8_inputs(x)
         cases["K8", size] = (cf.fdgsc_frames, ins, k8, cf.fdgsc_frames_plain(*ins, k8))
+        far, xe, _ = cs.echo_scene(B, M, sec * FS, seed=8 if size == "full" else 6)
+        ins = tuple(a.contiguous() for a in ca._prepare(torch.as_tensor(far, device=dev),
+                                                        torch.as_tensor(xe, device=dev), k7))
+        cases["K7", size] = (lambda *a: (ca.aec_frames(*a),), ins, k7, (ca.aec_frames_plain(*ins, k7),))
     torch.cuda.synchronize()
 
     ok = True
@@ -188,7 +208,7 @@ def main() -> int:
         for (name, size), (fn, ins, cfg, want) in cases.items():
             got = fn(*ins, cfg)
             torch.cuda.synchronize()
-            tol = cs.FLIP if (size == "full" and name == "K5 postfilter") else cs.TIGHT
+            tol = cs.FLIP if (size == "full" and name in ("K5 postfilter", "K7")) else cs.TIGHT
             rel = max(cs.rel_err(g, w)[0] for g, w in zip(got, want))
             good = rel < tol and all(bool(torch.isfinite(g).all()) for g in got)
             ok = ok and good

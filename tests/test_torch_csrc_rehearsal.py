@@ -1,10 +1,17 @@
-"""K5 (csrc/flms.cu, core and postfilter) and K8 (csrc/fdgsc.cu) rehearsed
-on the CPU: each source compiled with g++ against the thread-and-barrier
-shim in ``tests/torch_cuda_shim``, launched through its C launcher on CPU
-buffers at B=2, T=6 and Lf=256 and 128 with 4 mics, and at Lf=128 with 2
-and 8 (K5's C = 1 and 7, K8's M = 2 and 8), and held to the kernel's plain
-version at 1e-4 of max|out| (bm likewise, p absolutely).  MCRA's window
-is cut to L=1 so that p moves within the 6 frames.  The launches run in a child process
+"""K5 (csrc/flms.cu, core and postfilter), K8 (csrc/fdgsc.cu), K7
+(csrc/aec.cu) and K4 (csrc/enhance.cu's mega kernel) rehearsed on the CPU:
+each source compiled with g++ against the thread-and-barrier shim in
+``tests/torch_cuda_shim``, launched through its C launcher on CPU buffers
+and held to the kernel's plain version at 1e-4 of max|out| (bm likewise, p
+absolutely).  K5 and K8 run B=2 x T=6 frames at Lf=256 and 128 with 4 mics,
+and at Lf=128 with 2 and 8 (K5's C = 1 and 7, K8's M = 2 and 8), with
+MCRA's window cut to L=1 so that p moves within the 6 frames.  K7 runs 8
+frames of an echo scene at num_block 1 and 2, hop 256 and 128, and 1, 2, 4
+and 8 mics (and 9, two blocks an utterance, at B=2; and 3, an idle mic
+group), with the transfer logic firing.  K4 runs B=2 x 80 frames, the
+guard off: at n_fft 256 with 2, 4 and 8 mics in rank-1 mode with 8-frame
+chunks (64 frames of LDL^H warmup, the Bennett path, a re-anchor at frame
+72) and with 8 in LDL^H mode, and at n_fft 512 with 2 and 4.  The launches run in child processes (one per kernel family, at once)
 with a time limit (``rehearse.py``), so mismatched barriers fail the test
 instead of hanging it."""
 
@@ -26,15 +33,20 @@ def libs(tmp_path_factory):
     why = rehearse.compiler_ready()
     if why is not None:
         pytest.skip(why)
-    return rehearse.build(["flms", "fdgsc"], tmp_path_factory.mktemp("csrc_rehearsal"))
+    return rehearse.build(sorted(set(rehearse.LIBRARIES.values())), tmp_path_factory.mktemp("csrc_rehearsal"))
 
 
 @pytest.fixture(scope="module")
 def gaps(libs):
-    lib_dir = libs["flms"].parent
-    run = subprocess.run([sys.executable, rehearse.__file__, str(lib_dir)], capture_output=True, text=True, timeout=120)
-    assert run.returncode == 0, run.stderr[-4000:]
-    return json.loads(run.stdout.strip().splitlines()[-1])
+    lib_dir = str(libs["flms"].parent)
+    runs = [subprocess.Popen([sys.executable, rehearse.__file__, lib_dir, *group], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True) for group in (("k5", "k8"), ("k7",), ("k4",))]
+    res = {}
+    for run in runs:
+        out, err = run.communicate(timeout=400)
+        assert run.returncode == 0, err[-4000:]
+        res.update(json.loads(out.strip().splitlines()[-1]))
+    return res
 
 
 @pytest.mark.parametrize("case", [rehearse.case_name(*c) for c in rehearse.CASES])
@@ -43,8 +55,16 @@ def test_kernel_source_matches_plain_version(gaps, case):
     assert g["err"] == 0, f"{case}: the launcher returned CUDA error {g['err']}"
     assert g["out"] < TOL, f"{case}: out {g['out']:.3e} of max|out| from the plain version"
     assert g.get("bm", 0.0) < TOL, f"{case}: bm {g.get('bm'):.3e} of max|bm| from the plain version"
-    assert g["p"] < TOL, f"{case}: p {g['p']:.3e} from the plain version"
-    assert g["p_moves"] > 0.1, f"{case}: MCRA's p stayed put ({g['p_moves']:.3e}), so the gate was not exercised"
+    if case.startswith(("k5", "k8")):
+        assert g["p"] < TOL, f"{case}: p {g['p']:.3e} from the plain version"
+        assert g["p_moves"] > 0.1, f"{case}: MCRA's p stayed put ({g['p_moves']:.3e}), so the gate was not exercised"
+    elif case.startswith("k7"):
+        assert g["flips"] == 0, f"{case}: {g['flips']} transfer decisions differ from the plain version's"
+        assert g["transfers"] > 0, f"{case}: the transfer logic never fired"
+        if case.endswith("-m9"):
+            assert g["mics_per_block"] < 9, f"{case}: expected more than one block an utterance"
+    else:
+        assert g["open_steady"] > 0, f"{case}: no covariance update after the warmup, so the Bennett path did not run"
 
 
 def test_shim_refuses_what_the_card_refuses(libs):

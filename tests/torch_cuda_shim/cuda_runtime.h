@@ -5,8 +5,8 @@
 //
 // - __syncthreads is a std::barrier of the block, __syncwarp one of the warp,
 //   group_sync(id, n) (bar.sync id, n) one per (id, n) of the block;
-// - __shfl_xor_sync exchanges through a per-warp array between two warp
-//   barriers;
+// - __shfl_xor_sync, __shfl_up_sync and __shfl_sync exchange through a
+//   two-half per-thread array, one warp barrier a shuffle;
 // - the cp.async helpers of flms_fft.cuh are plain copies, their commit and
 //   wait no-ops;
 // - dynamic shared memory is filled with NaN at each block's start, so a read
@@ -61,7 +61,7 @@ constexpr size_t kMaxSmem = 232448;  // a Hopper block's dynamic shared memory w
 struct Block {
   explicit Block(unsigned nthreads, size_t smem_bytes) : all(nthreads) {
     for (unsigned w = 0; w < (nthreads + 31) / 32; ++w) warps.emplace_back(std::make_unique<std::barrier<>>(32));
-    exchange.resize(nthreads);
+    exchange.resize(2 * nthreads);
     const size_t n = smem_bytes / sizeof(float) + 4;
     smem = static_cast<float*>(std::aligned_alloc(16, ((n * sizeof(float) + 15) / 16) * 16));
     for (size_t i = 0; i < n; ++i) smem[i] = std::numeric_limits<float>::quiet_NaN();
@@ -123,13 +123,32 @@ inline void __syncwarp(unsigned = 0xffffffffu) { shim::block->warps[threadIdx.x 
 
 inline void group_sync(int id, int nthreads) { shim::block->named(id, nthreads).arrive_and_wait(); }
 
+namespace shim {
+// One warp exchange: every lane publishes v, and after the warp's barrier
+// reads lane src's.  The exchange array alternates between two halves from
+// one shuffle to the next, so a second barrier is not needed: a lane writes
+// a half again only after the barrier of the shuffle in between, which
+// every lane passes after its read of that half.
+inline thread_local unsigned parity = 0;
+inline float exchange(float v, unsigned src) {
+  float* x = block->exchange.data() + (parity ^= 1u) * block->exchange.size() / 2;
+  x[threadIdx.x] = v;
+  __syncwarp();
+  return x[(threadIdx.x & ~31u) | (src & 31u)];
+}
+}  // namespace shim
+
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
-  shim::block->exchange[threadIdx.x] = v;
-  __syncwarp();
-  const float r = shim::block->exchange[(threadIdx.x & ~31u) | ((threadIdx.x & 31u) ^ (unsigned)lane_mask)];
-  __syncwarp();
+  return shim::exchange(v, (threadIdx.x & 31u) ^ (unsigned)lane_mask);
+}
+
+inline float __shfl_up_sync(unsigned, float v, unsigned delta) {
+  const unsigned lane = threadIdx.x & 31u;
+  const float r = shim::exchange(v, lane >= delta ? lane - delta : lane);
   return r;
 }
+
+inline float __shfl_sync(unsigned, float v, int src_lane) { return shim::exchange(v, (unsigned)src_lane); }
 
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
