@@ -22,13 +22,14 @@
 // block before the gradients go back to taps.  Each 512-point transform is
 // owned by one warp or a warp pair (flms_fft.cuh), two real transforms
 // packed into each complex one: per frame 3 + 7 M real transforms (31 at
-// M = 4) as M + M / 2 + 5 complex ones (17 at M = 4) in 6 batches: {the FBF
-// analysis alone, the M BM tap spectra in pairs} (1 + M / 2; the small taps
+// M = 4) as M + 4 H + 3 complex ones (17 at M = 4), H = ceil(M / 2) the
+// mic pairs (an odd M's last pair half empty), in 6 batches: {the FBF
+// analysis alone, the M BM tap spectra in pairs} (1 + H; the small taps
 // do not share a transform with the analysis, whose rounding would drown
-// them), {the M BM outputs} (M / 2), {E_bm and the AIC input of each mic}
-// (M) with {the M AIC tap spectra} (M / 2), {the M BM gradients, the AIC
-// output} (M / 2 + 1), {the AIC error} (1) and {the M AIC gradients}
-// (M / 2).  Block barriers: 13 a frame, each
+// them), {the M BM outputs} (H), {E_bm and the AIC input of each mic}
+// (M) with {the M AIC tap spectra} (H), {the M BM gradients, the AIC
+// output} (H + 1), {the AIC error} (1) and {the M AIC gradients}
+// (H).  Block barriers: 13 a frame, each
 // where data crosses between the per-transform and the per-bin layouts (the
 // two block sums ride on them); none inside a transform.  The next frame's
 // inputs (the FBF block, the M delayed mic blocks, the delayed FBF block and
@@ -66,7 +67,8 @@ __host__ __device__ __forceinline__ int slot_floats(int M, int Lf) {
 // Shared memory in floats; the kernel carves it in this order.
 size_t smem_floats(int M, int Lf) {
   const size_t N = 2 * Lf, F = Lf + 1, hop = Lf;
-  const size_t nseq = (1 + M / 2) + (M / 2 + 1) + M + M / 2 + 1;
+  const size_t H = (M + 1) / 2;  // mic pairs
+  const size_t nseq = (1 + H) + (H + 1) + M + H + 1;
   return 2 * (size_t)slot_floats(M, Lf) + nseq * N * 2 + N + Lf + 2 * M * Lf + M * hop + 2 * F + 5 * F + F +
          4 * kFrameWarps;
 }
@@ -82,8 +84,9 @@ __global__ void __launch_bounds__(kFrameThreads, 1) fdgsc_kernel(const float* __
                                                               float* __restrict__ pout, float* __restrict__ bmo, int T,
                                                               int Lf, int logN, FdgscParams prm) {
   extern __shared__ float4 smem4[];
-  constexpr int nA = 1 + M / 2;    // the FBF analysis (with zero), then the BM tap spectra in pairs
-  constexpr int nY = M / 2 + 1;    // BM output pairs; BM gradient pairs + the AIC output; AIC gradient pairs
+  constexpr int H = (M + 1) / 2;  // mic pairs; an odd M's last pair has an empty second half
+  constexpr int nA = 1 + H;       // the FBF analysis (with zero), then the BM tap spectra in pairs
+  constexpr int nY = H + 1;       // BM output pairs; BM gradient pairs + the AIC output; AIC gradient pairs
   const int N = 2 * Lf, hop = Lf, F = Lf + 1;
   const int tid = threadIdx.x;
   const size_t S = (size_t)T * hop;
@@ -93,8 +96,8 @@ __global__ void __launch_bounds__(kFrameThreads, 1) fdgsc_kernel(const float* __
   float2* bA = reinterpret_cast<float2*>(ring + 2 * slot);  // [nA][N] X, W_0 + i W_1, W_2 + i W_3, ...
   float2* bY = bA + nA * N;                                // [nY][N] inverses
   float2* bP = bY + nY * N;                                // [M][N] E_bm + i AIC input, per mic
-  float2* bQ = bP + M * N;                                 // [M/2][N] AIC tap spectra in pairs (after bP)
-  float2* bE = bQ + (M / 2) * N;                           // [N] the AIC error spectrum
+  float2* bQ = bP + M * N;                                 // [H][N] AIC tap spectra in pairs (after bP)
+  float2* bE = bQ + H * N;                                 // [N] the AIC error spectrum
   float2* tw = bE + N;                                     // [N/2]
   float* ub = reinterpret_cast<float*>(tw + N / 2);         // [Lf] CCAF upper bounds
   float* Wbm = ub + Lf;                                     // [M][Lf] BM taps
@@ -155,7 +158,7 @@ __global__ void __launch_bounds__(kFrameThreads, 1) fdgsc_kernel(const float* __
       if (q == 0)
         v.x = n < hop ? (t > 0 ? old[n] : 0.f) : cur[n - hop];
       else if (n < Lf)
-        v = make_float2(Wbm[(2 * q - 2) * Lf + n], Wbm[(2 * q - 1) * Lf + n]);
+        v = make_float2(Wbm[(2 * q - 2) * Lf + n], 2 * q - 1 < M ? Wbm[(2 * q - 1) * Lf + n] : 0.f);
       bA[q * N + swz(bitrev(n, logN), logN)] = v;
     }
     __syncthreads();  // 1
@@ -173,14 +176,14 @@ __global__ void __launch_bounds__(kFrameThreads, 1) fdgsc_kernel(const float* __
       const float2 X = bA[swz(k, logN)];  // the FBF analysis, a real signal's transform
       Pbm[k] = fmaxf(prm.bm_alpha * Pbm[k] + prm.bm_one_m_alpha * (X.x * X.x + X.y * X.y), 1e-4f);
 #pragma unroll
-      for (int q = 0; q < M / 2; ++q) {
+      for (int q = 0; q < H; ++q) {
         float2 W0, W1;
         split_pair(bA + (1 + q) * N, k, N, logN, W0, W1);
-        put_pair(bY + q * N, k, N, logN, cmulf(X, W0), cmulf(X, W1));
+        put_pair(bY + q * N, k, N, logN, cmulf(X, W0), 2 * q + 1 < M ? cmulf(X, W1) : make_float2(0.f, 0.f));
       }
     }
     __syncthreads();  // 3
-    fft_batch<true>(bY, M / 2, N, logN, tw);
+    fft_batch<true>(bY, H, N, logN, tw);
     __syncthreads();  // 4
 
     // ---- BM outputs e_bm: the BM error input [0; e_bm] + i the AIC input
@@ -194,24 +197,25 @@ __global__ void __launch_bounds__(kFrameThreads, 1) fdgsc_kernel(const float* __
       bP[m * N + swz(bitrev(hop + n, logN), logN)] = make_float2(e, e);
       Eprev[i] = e;
     }
-    for (int i = tid; i < (M / 2) * N; i += kFrameThreads) {
+    for (int i = tid; i < H * N; i += kFrameThreads) {
       const int q = i >> logN, n = i & (N - 1);
       const bool in = n < Lf;
       bQ[q * N + swz(bitrev(n, logN), logN)] =
-          make_float2(in ? Waic[2 * q * Lf + n] : 0.f, in ? Waic[(2 * q + 1) * Lf + n] : 0.f);
+          make_float2(in ? Waic[2 * q * Lf + n] : 0.f, in && 2 * q + 1 < M ? Waic[(2 * q + 1) * Lf + n] : 0.f);
     }
     __syncthreads();  // 5
-    fft_batch<false>(bP, M + M / 2, N, logN, tw);  // bP and bQ are adjacent
+    fft_batch<false>(bP, M + H, N, logN, tw);  // bP and bQ are adjacent
     __syncthreads();  // 6
 
     // ---- per bin: the BM gradients; the AIC output and power
     for (int k = tid; k < F; k += kFrameThreads) {
       const float2 X = bA[swz(k, logN)];
       const float P = Pbm[k];
-      float2 Y = make_float2(0.f, 0.f), g[M], Wa[M];
+      float2 Y = make_float2(0.f, 0.f), g[2 * H], Wa[2 * H];
       float pw = 0.f;
+      g[2 * H - 1] = make_float2(0.f, 0.f);  // an odd M's empty half
 #pragma unroll
-      for (int q = 0; q < M / 2; ++q) split_pair(bQ + q * N, k, N, logN, Wa[2 * q], Wa[2 * q + 1]);
+      for (int q = 0; q < H; ++q) split_pair(bQ + q * N, k, N, logN, Wa[2 * q], Wa[2 * q + 1]);
 #pragma unroll
       for (int m = 0; m < M; ++m) {
         float2 Eb, Za;
@@ -223,8 +227,8 @@ __global__ void __launch_bounds__(kFrameThreads, 1) fdgsc_kernel(const float* __
       }
       Paic[k] = fmaxf(prm.aic_alpha * Paic[k] + prm.aic_one_m_alpha * pw, 1e-4f);
 #pragma unroll
-      for (int q = 0; q < M / 2; ++q) put_pair(bY + q * N, k, N, logN, g[2 * q], g[2 * q + 1]);
-      put_pair(bY + (M / 2) * N, k, N, logN, Y, make_float2(0.f, 0.f));
+      for (int q = 0; q < H; ++q) put_pair(bY + q * N, k, N, logN, g[2 * q], g[2 * q + 1]);
+      put_pair(bY + H * N, k, N, logN, Y, make_float2(0.f, 0.f));
     }
     __syncthreads();  // 7
     fft_batch<true>(bY, nY, N, logN, tw);
@@ -237,7 +241,7 @@ __global__ void __launch_bounds__(kFrameThreads, 1) fdgsc_kernel(const float* __
       Wbm[i] = fminf(fmaxf(Wbm[i] + prm.bm_mu * (((m & 1) ? u.y : u.x) * invN), -0.001f), ub[n]);
     }
     for (int n = tid; n < hop; n += kFrameThreads) {
-      const float e = cur[o_a + n] - bY[(M / 2) * N + swz(hop + n, logN)].x * invN;
+      const float e = cur[o_a + n] - bY[H * N + swz(hop + n, logN)].x * invN;
       ob[(size_t)t * hop + n] = e;
       bE[swz(bitrev(n, logN), logN)] = make_float2(0.f, 0.f);
       bE[swz(bitrev(hop + n, logN), logN)] = make_float2(e, 0.f);
@@ -251,9 +255,10 @@ __global__ void __launch_bounds__(kFrameThreads, 1) fdgsc_kernel(const float* __
     for (int k = tid; k < F; k += kFrameThreads) {
       const float2 E = bE[swz(k, logN)];
       const float P = Paic[k];
-      float2 g[M], Wa[M];
+      float2 g[2 * H], Wa[2 * H];
+      g[2 * H - 1] = make_float2(0.f, 0.f);  // an odd M's empty half
 #pragma unroll
-      for (int q = 0; q < M / 2; ++q) split_pair(bQ + q * N, k, N, logN, Wa[2 * q], Wa[2 * q + 1]);
+      for (int q = 0; q < H; ++q) split_pair(bQ + q * N, k, N, logN, Wa[2 * q], Wa[2 * q + 1]);
 #pragma unroll
       for (int m = 0; m < M; ++m) {
         float2 Eb, Za;
@@ -263,14 +268,14 @@ __global__ void __launch_bounds__(kFrameThreads, 1) fdgsc_kernel(const float* __
         nrm[0] += nr * nr + ni * ni;
       }
 #pragma unroll
-      for (int q = 0; q < M / 2; ++q) put_pair(bY + q * N, k, N, logN, g[2 * q], g[2 * q + 1]);
+      for (int q = 0; q < H; ++q) put_pair(bY + q * N, k, N, logN, g[2 * q], g[2 * q + 1]);
     }
     warp_partials<1>(nrm, red + 3 * kFrameWarps);
     __syncthreads();  // 11
     sum_partials<1>(nrm, red + 3 * kFrameWarps);
     const float norm = nrm[0] / (float)N / (float)N;
     const float scale = norm > prm.maxnorm ? sqrtf(prm.maxnorm / fmaxf(norm, 1e-30f)) : 1.f;
-    fft_batch<true>(bY, M / 2, N, logN, tw);
+    fft_batch<true>(bY, H, N, logN, tw);
     __syncthreads();  // 12
     for (int i = tid; i < M * Lf; i += kFrameThreads) {
       const int m = i >> (logN - 1), n = i & (Lf - 1);
@@ -297,7 +302,7 @@ cudaError_t launch(const float* fbf, const float* dbm, const float* daic, const 
 
 extern "C" {
 
-// M (mics) in 2, 4, 8; Lf a power of two >= 128 (the p pinning reads bins 32..127).
+// M (mics) 2 to 8; Lf a power of two >= 128 (the p pinning reads bins 32..127).
 cudaError_t fused_fdgsc_launch(const void* fbf, const void* dbm, const void* daic, const void* yp, const void* tabs,
                                void* out, void* p, void* bm, int M, int B, int T, int Lf, const void* params,
                                void* stream) {
@@ -315,7 +320,11 @@ cudaError_t fused_fdgsc_launch(const void* fbf, const void* dbm, const void* dai
   float* bf = static_cast<float*>(bm);
   switch (M) {
     case 2: return launch<2>(ff, df, af, yf, tf, of, pf, bf, B, T, Lf, logN, prm, st);
+    case 3: return launch<3>(ff, df, af, yf, tf, of, pf, bf, B, T, Lf, logN, prm, st);
     case 4: return launch<4>(ff, df, af, yf, tf, of, pf, bf, B, T, Lf, logN, prm, st);
+    case 5: return launch<5>(ff, df, af, yf, tf, of, pf, bf, B, T, Lf, logN, prm, st);
+    case 6: return launch<6>(ff, df, af, yf, tf, of, pf, bf, B, T, Lf, logN, prm, st);
+    case 7: return launch<7>(ff, df, af, yf, tf, of, pf, bf, B, T, Lf, logN, prm, st);
     case 8: return launch<8>(ff, df, af, yf, tf, of, pf, bf, B, T, Lf, logN, prm, st);
     default: return cudaErrorInvalidValue;
   }

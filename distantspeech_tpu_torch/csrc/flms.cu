@@ -23,10 +23,12 @@
 // magnitude, from the previous frame's maxima, so that the small tap
 // spectra keep their precision), the output inverse (1), the error spectrum
 // with the postfilter analysis (1), the C gradients with the postfiltered
-// beam ((C + 1) / 2), the C constrained gradients ((C + 1) / 2) and the C
-// gated updates ((C + 1) / 2).  Block barriers: 13 a frame (14 with the
-// postfilter), each where data crosses between the per-transform and the
-// per-bin layouts; none inside a transform.  The next frame's inputs (the C
+// beam (ceil(C / 2) pairs, the beam the second half of an odd C's last; an
+// even C's beam takes a pair of its own), the C constrained gradients and
+// the C gated updates (ceil(C / 2) pairs each, an odd C's last half empty).
+// Block barriers: 13 a frame (14 with the postfilter), each where data
+// crosses between the per-transform and the per-bin layouts; none inside a
+// transform.  The next frame's inputs (the C
 // blocking-matrix blocks, the desired block, the FBF power and, with the
 // postfilter, the C reference powers) are prefetched with cp.async into a
 // two-slot ring while the frame computes.  Twiddles and the window come from
@@ -67,8 +69,8 @@ __host__ __device__ __forceinline__ int slot_floats(int C, int Lf, bool pf) {
 // Shared memory in floats; the kernel carves it in this order.
 size_t smem_floats(int C, int Lf, bool pf) {
   const size_t N = 2 * Lf, F = Lf + 1, hop = Lf;
-  const size_t nQ = (C + 1) / 2;  // the pairs of Gb (C odd)
-  size_t n = 2 * (size_t)slot_floats(C, Lf, pf) + (C + nQ + 1) * N * 2 + N + C * Lf + 7 * F + 3 * kFrameWarps;
+  const size_t nG = (C + (pf ? 1 : 0) + 1) / 2;  // the pairs of Gb
+  size_t n = 2 * (size_t)slot_floats(C, Lf, pf) + (C + nG + 1) * N * 2 + N + C * Lf + 7 * F + 3 * kFrameWarps;
   if (pf) n += N + 2 * hop + F + 2 * F + 5 * (1 + C) * F + F + C * F + 3 * F;
   return n;
 }
@@ -81,11 +83,14 @@ __global__ void __launch_bounds__(kFrameThreads, 1) tdgsc_kernel(const float* __
                                                               const float* __restrict__ tabs, float* __restrict__ out,
                                                               float* __restrict__ pout, int T, int Lf, int logN,
                                                               TdgscParams prm) {
-  static_assert(C & 1, "built for C = 1, 3, 7: the postfiltered beam pairs with gradient C - 1");
+  static_assert(C >= 1 && C <= 7, "built for C = M - 1 = 1 .. 7");
   extern __shared__ float4 smem4[];
-  // gradient pairs (the last one's second signal is the postfiltered beam,
-  // or zero), then constrained-gradient and update pairs
+  // nQ gradient pairs (an even C's last pair with an empty second half),
+  // then constrained-gradient and update pairs; nG with the postfiltered
+  // beam, the second signal of pair C / 2 (with gradient C - 1 for an odd
+  // C, alone in a pair of its own for an even one)
   constexpr int nQ = (C + 1) / 2;
+  constexpr int nG = (C + (kPF ? 1 : 0) + 1) / 2;
   const int N = 2 * Lf, hop = Lf, F = Lf + 1;
   const int tid = threadIdx.x;
   const size_t S = (size_t)T * hop;
@@ -93,8 +98,8 @@ __global__ void __launch_bounds__(kFrameThreads, 1) tdgsc_kernel(const float* __
   const int o_d = round4(C * hop), o_y = o_d + round4(hop), o_u = o_y + round4(F);
   float* ring = reinterpret_cast<float*>(smem4);       // [2][slot] this and the next frame's inputs
   float2* Z = reinterpret_cast<float2*>(ring + 2 * slot);  // [C][N] x_c + i w_c; then the nQ constrained pairs
-  float2* Gb = Z + C * N;                             // [nQ][N] output inverse (Gb[0]); gradient, then update pairs
-  float2* E2 = Gb + nQ * N;                           // [N] error + i postfilter analysis
+  float2* Gb = Z + C * N;                             // [nG][N] output inverse (Gb[0]); gradient, then update pairs
+  float2* E2 = Gb + nG * N;                           // [N] error + i postfilter analysis
   float2* tw = E2 + N;                                // [N/2]
   float* wt = reinterpret_cast<float*>(tw + N / 2);    // [C][Lf] taps
   float* Pw = wt + C * Lf;                             // [F] FLMS power
@@ -221,9 +226,9 @@ __global__ void __launch_bounds__(kFrameThreads, 1) tdgsc_kernel(const float* __
       float2 E, Y;
       split_pair(E2, k, N, logN, E, Y);
       const float P = Pw[k];
-      float2 gr[2 * nQ];
+      float2 gr[2 * nG];
 #pragma unroll
-      for (int c = 0; c < 2 * nQ; ++c) {
+      for (int c = 0; c < 2 * nG; ++c) {
         gr[c] = make_float2(0.f, 0.f);
         if (c < C) {
           float2 X, W;
@@ -232,7 +237,7 @@ __global__ void __launch_bounds__(kFrameThreads, 1) tdgsc_kernel(const float* __
         }
       }
 #pragma unroll
-      for (int q = 0; q < nQ; ++q) put_pair(Gb + q * N, k, N, logN, gr[2 * q], gr[2 * q + 1]);
+      for (int q = 0; q < nG; ++q) put_pair(Gb + q * N, k, N, logN, gr[2 * q], gr[2 * q + 1]);
       if (kPF) {
         ybr[k] = Y.x;
         ybi[k] = Y.y;
@@ -294,7 +299,7 @@ __global__ void __launch_bounds__(kFrameThreads, 1) tdgsc_kernel(const float* __
       }
       __syncthreads();  // postfilter only
     }
-    fft_batch<true>(Gb, nQ, N, logN, tw);  // gradients (and the postfiltered beam)
+    fft_batch<true>(Gb, nG, N, logN, tw);  // gradients (and the postfiltered beam)
     __syncthreads();
 
     // ---- gradient constraint: keep the first Lf samples, in pairs; postfilter synthesis
@@ -369,7 +374,8 @@ cudaError_t launch_c(const float* bm, const float* d, const float* yp, const flo
 
 extern "C" {
 
-// up null: the core kernel; else the postfilter variant.
+// C (= M - 1 blocking-matrix channels) 1 to 7; up null: the core kernel,
+// else the postfilter variant.
 cudaError_t fused_tdgsc_launch(const void* bm, const void* d, const void* yp, const void* up, const void* tabs,
                                void* out, void* p, int C, int B, int T, int Lf, const void* params, void* stream) {
   const int logN = log2_of_twice(Lf);
@@ -385,7 +391,11 @@ cudaError_t fused_tdgsc_launch(const void* bm, const void* d, const void* yp, co
   float* pf = static_cast<float*>(p);
   switch (C) {
     case 1: return launch_c<1>(bf, df, yf, uf, tf, of, pf, B, T, Lf, logN, prm, st);
+    case 2: return launch_c<2>(bf, df, yf, uf, tf, of, pf, B, T, Lf, logN, prm, st);
     case 3: return launch_c<3>(bf, df, yf, uf, tf, of, pf, B, T, Lf, logN, prm, st);
+    case 4: return launch_c<4>(bf, df, yf, uf, tf, of, pf, B, T, Lf, logN, prm, st);
+    case 5: return launch_c<5>(bf, df, yf, uf, tf, of, pf, B, T, Lf, logN, prm, st);
+    case 6: return launch_c<6>(bf, df, yf, uf, tf, of, pf, B, T, Lf, logN, prm, st);
     case 7: return launch_c<7>(bf, df, yf, uf, tf, of, pf, B, T, Lf, logN, prm, st);
     default: return cudaErrorInvalidValue;
   }

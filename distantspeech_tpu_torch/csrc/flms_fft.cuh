@@ -1,8 +1,8 @@
 // The frame-loop pieces of the redesigned kernels K5 (flms.cu), K8
-// (fdgsc.cu), K7 (aec.cu) and K4 (enhance.cu's mega kernel): a complex FFT
-// owned by one warp (or a few warps) instead of the whole block, two real
-// transforms packed into one complex FFT, and the asynchronous prefetch of
-// the next frame's inputs into shared memory.
+// (fdgsc.cu), K7 (aec.cu), K4 (enhance.cu's mega kernel) and K9 (sgsc.cu):
+// a complex FFT owned by one warp (or a few warps) instead of the whole
+// block, two real transforms packed into one complex FFT, and the
+// asynchronous prefetch of the next frame's inputs into shared memory.
 //
 // The transform.  Each N-point sequence (N = 2^logN, 4 <= N <= 4096) lies in
 // shared memory in bit-reversed order, point p at swz(p): p with its low four

@@ -1,9 +1,9 @@
 // Shared pieces of the FLMS-family kernels (K5 flms.cu, K6 kws.cu, K7
 // aec.cu, K8 fdgsc.cu; K9 sgsc.cu and K4 enhance.cu use some): the
-// shared-memory radix-2 FFT, the half-spectrum helpers, the MCRA state in
-// shared memory, and a block reduction.
+// shared-memory radix-2 FFT, the half-spectrum helpers and the MCRA state
+// in shared memory.
 //
-// A kernel that runs its transforms through fft_stages (K6, K9) runs
+// A kernel that runs its transforms through fft_stages (K6) runs
 // kThreads threads per block, one block per utterance, and does each
 // 2L-point transform of its frame loop as an in-place FFT in shared memory:
 // a real signal as a complex FFT with zero imaginary part, a half spectrum
@@ -19,7 +19,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ int bitrev(int n, int logN) { return (int)(__brev((unsigned)n) >> (32 - logN)); }
 
@@ -87,29 +86,6 @@ __device__ __forceinline__ void store_mcra(float* st, int stride, int i, const M
   st[2 * stride + i] = m.Stmp;
   st[3 * stride + i] = m.P;
   st[4 * stride + i] = m.Lam;
-}
-
-// Sums v[0..NV-1] over the block: each warp by shuffles, then the kWarps
-// partials in a fixed order, so every thread gets the same totals.  red:
-// NV * kWarps floats of shared memory.  Two barriers: one before the
-// partials are read, one before red can be written again.
-template <int NV>
-__device__ __forceinline__ void block_sum(float (&v)[NV], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v[j] = v[j] + __shfl_xor_sync(0xffffffffu, v[j], o);
-    if (lane == 0) red[j * kWarps + warp] = v[j];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    float s = red[j * kWarps];
-    for (int w = 1; w < kWarps; ++w) s = s + red[j * kWarps + w];
-    v[j] = s;
-  }
-  __syncthreads();
 }
 
 // Raises the kernel's dynamic shared-memory limit where it needs more than

@@ -79,7 +79,7 @@ cudaError_t launch(const float2* z, const float* gate, const float* p, const flo
 
 extern "C" {
 
-// p and lam null: no gain.
+// M (mics) 2 to 8; p and lam null: no gain.
 cudaError_t fused_mvdr_scan_launch(const void* z, const void* gate, const void* p, const void* lam,
                                    const void* steer, void* y, int M, int T, int B, int F, const void* params,
                                    void* stream) {
@@ -94,7 +94,11 @@ cudaError_t fused_mvdr_scan_launch(const void* z, const void* gate, const void* 
   float2* yf = static_cast<float2*>(y);
   switch (M) {
     case 2: return launch<2>(zf, gf, pf, lf, sv, yf, T, B * F, F, lp, st);
+    case 3: return launch<3>(zf, gf, pf, lf, sv, yf, T, B * F, F, lp, st);
     case 4: return launch<4>(zf, gf, pf, lf, sv, yf, T, B * F, F, lp, st);
+    case 5: return launch<5>(zf, gf, pf, lf, sv, yf, T, B * F, F, lp, st);
+    case 6: return launch<6>(zf, gf, pf, lf, sv, yf, T, B * F, F, lp, st);
+    case 7: return launch<7>(zf, gf, pf, lf, sv, yf, T, B * F, F, lp, st);
     case 8: return launch<8>(zf, gf, pf, lf, sv, yf, T, B * F, F, lp, st);
     default: return cudaErrorInvalidValue;
   }

@@ -104,7 +104,7 @@ cudaError_t launch(const float* y, const float* G, float* out, int R, int F, int
 
 extern "C" {
 
-// M (mics) in 2, 4, 8.
+// M (mics) 2 to 8.
 cudaError_t fused_srp_launch(const void* y, const void* G, void* out, int R, int F, int M, int Theta, void* stream) {
   if (R < 1 || F < 1 || Theta < 1) return cudaErrorInvalidValue;
   const float* yf = static_cast<const float*>(y);
@@ -113,7 +113,11 @@ cudaError_t fused_srp_launch(const void* y, const void* G, void* out, int R, int
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (M) {
     case 2: return launch<4>(yf, gf, of, R, F, Theta, st);
+    case 3: return launch<6>(yf, gf, of, R, F, Theta, st);
     case 4: return launch<8>(yf, gf, of, R, F, Theta, st);
+    case 5: return launch<10>(yf, gf, of, R, F, Theta, st);
+    case 6: return launch<12>(yf, gf, of, R, F, Theta, st);
+    case 7: return launch<14>(yf, gf, of, R, F, Theta, st);
     case 8: return launch<16>(yf, gf, of, R, F, Theta, st);
     default: return cudaErrorInvalidValue;
   }

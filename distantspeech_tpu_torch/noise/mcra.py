@@ -14,6 +14,12 @@ semantics:
 
 The frame counters ``ell`` and ``frm_cnt`` are host integers: they are the
 same for every bin and utterance, so the branches on them are host branches.
+
+``mcra_run`` on a CUDA tensor launches the MCRA lane kernel
+(``ops/cuda_mcra.py``, ``csrc/mcra.cu``: one thread a lane through every
+frame, the counters in closed form), where the JAX package runs one
+``lax.scan``; on a CPU tensor it runs ``mcra_run_plain``, the frame loop of
+``mcra_step``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from distantspeech_tpu_torch._device import resolve_device
+from distantspeech_tpu_torch.ops import cuda_mcra
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,14 +121,23 @@ def mcra_step(cfg: McraConfig, state: McraState, Y: torch.Tensor) -> Tuple[McraS
     return new_state, (lam_out, p_out)
 
 
-def mcra_run(cfg: McraConfig, Y_tf: torch.Tensor, return_sr: bool = False):
-    """MCRA over a whole spectrogram.  Y_tf: [T, ..., F] power, time-major.
-    Returns (lambda_d, p), each [T, ..., F]; with ``return_sr`` also the raw
-    speech indicator S / Smin (the statistic p is filtered from, without the
-    2L warmup forcing — see MvdrConfig.vad_guard)."""
+def mcra_run_plain(cfg: McraConfig, Y_tf: torch.Tensor, return_sr: bool = False):
+    """MCRA over a whole spectrogram, frame by frame (``mcra_step``).
+    Y_tf: [T, ..., F] power, time-major.  Returns (lambda_d, p), each
+    [T, ..., F]; with ``return_sr`` also the raw speech indicator S / Smin
+    (the statistic p is filtered from, without the 2L warmup forcing — see
+    MvdrConfig.vad_guard)."""
     state = mcra_init(cfg, batch_shape=Y_tf.shape[1:-1], dtype=Y_tf.dtype, device=Y_tf.device)
     outs = []
     for y in Y_tf:
         state, (lam, p) = mcra_step(cfg, state, y)
         outs.append((lam, p, state.S / (state.Smin + 1e-6)) if return_sr else (lam, p))
     return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def mcra_run(cfg: McraConfig, Y_tf: torch.Tensor, return_sr: bool = False):
+    """``mcra_run_plain``'s result: on a CPU tensor that function, on a CUDA
+    tensor the MCRA lane kernel (float32), one launch a call."""
+    if Y_tf.device.type == "cpu":
+        return mcra_run_plain(cfg, Y_tf, return_sr)
+    return cuda_mcra.mcra_frames(cfg, Y_tf, _freq_smooth(Y_tf, cfg.b), return_sr)

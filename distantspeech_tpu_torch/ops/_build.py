@@ -40,8 +40,10 @@ NVCC_FLAGS = (
 # rounds as PyTorch's elementwise operations do.  sgsc.cu (K9) likewise: its
 # McSpp speech presence passes through the inverses of noise covariances
 # loaded by as little as 1e-4, which amplify a last-bit difference in the
-# same way.
-SOURCE_FLAGS = {"mvdr": ("-fmad=false",), "sgsc": ("-fmad=false",)}
+# same way.  mcra.cu likewise, so that the thresholded S / Smin > delta_s
+# sees the plain version's values: it is bound by bytes, so contraction
+# would buy it nothing.
+SOURCE_FLAGS = {"mvdr": ("-fmad=false",), "sgsc": ("-fmad=false",), "mcra": ("-fmad=false",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

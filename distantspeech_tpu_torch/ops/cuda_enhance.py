@@ -73,12 +73,12 @@ LAUNCHES = {"fused_enhance": 0, "fused_enhance_full": 0}
 # inv_mode='rank1': frames of exact per-frame LDL^H before the Bennett
 # handover, rounded up to whole frame chunks
 _RANK1_WARM_FRAMES = 64
-_KERNEL_MICS = (2, 4, 8)  # the M the CUDA templates are instantiated for
-# the mega kernel's transform sizes: those of the JAX kernel (multiples of
-# 256) whose F = n_fft/2 + 1 lanes leave 3 of its block's 8 warps to the
-# FFTs, one bin a lane thread, two at n_fft 512, where the 8-mic lane state
-# would not fit twice in a thread's registers (so 512 takes 2 or 4 mics)
-_FULL_NFFT = (256, 512)
+_KERNEL_MICS = range(2, 9)  # the M the CUDA templates are instantiated for: 2 to 8
+# the mega kernel's transform sizes: the powers of two among those of the JAX
+# kernel (multiples of 256) up to what one block holds; the lane states sit
+# in registers at 256 (and at 512 with M <= 4), else in shared memory or a
+# global scratch (csrc/enhance.cu)
+_FULL_NFFT = (256, 512, 1024)
 
 
 def _pick_t_chunk(T: int, cap: int = 64):
@@ -278,8 +278,10 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_enhance_launch.argtypes = [p, p, p, p, i, i, i, i, p, p]
         lib.fused_enhance_launch.restype = i
-        lib.fused_enhance_full_launch.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p, p]
+        lib.fused_enhance_full_launch.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, p, p]
         lib.fused_enhance_full_launch.restype = i
+        lib.fused_enhance_full_scratch_floats.argtypes = [i, i]
+        lib.fused_enhance_full_scratch_floats.restype = i
         lib._signatures_set = True
     return lib
 
@@ -293,7 +295,7 @@ def enhance_lanes(Z, Sf, steer_planes, cfg, t_chunk: int, inv_mode: str = "ldl")
     _build.check_tensors("fused_enhance", Z, Sf, steer_planes)
     T, M, _, B, F = Z.shape
     if M not in _KERNEL_MICS:
-        raise ValueError(f"fused_enhance: the kernel is built for M in {_KERNEL_MICS}, got M={M}")
+        raise ValueError(f"fused_enhance: the kernel is built for M from 2 to 8, got M={M}")
     if Sf.shape != (T, B, F) or steer_planes.shape != (M, 2, F):
         raise ValueError("fused_enhance: Sf must be [T, B, F] and steer_planes [M, 2, F]")
     lib = _library()
@@ -340,18 +342,19 @@ def fused_enhance_full(x: torch.Tensor, steer, cfg, t_chunk: int = None, inv_mod
     _build.check_tensors("fused_enhance_full", x)
     B, M, S = x.shape
     stft = cfg.stft
-    if M not in _KERNEL_MICS:
-        raise ValueError(f"fused_enhance_full: the kernel is built for M in {_KERNEL_MICS}, got M={M}")
-    if stft.n_fft not in _FULL_NFFT or (stft.n_fft == 512 and M == 8):
-        raise ValueError(f"fused_enhance_full: the kernel takes n_fft in {_FULL_NFFT} (512 with 2 or 4 mics), "
-                         f"got n_fft={stft.n_fft}, M={M}; backend='fused' runs any")
+    if M not in _KERNEL_MICS or stft.n_fft not in _FULL_NFFT:
+        raise ValueError(f"fused_enhance_full: the kernel takes M from 2 to 8 and n_fft in {_FULL_NFFT}, "
+                         f"got M={M}, n_fft={stft.n_fft}; backend='fused' runs any")
     lib = _library()
     T = S // stft.hop
     y = torch.empty((B, S), dtype=torch.float32, device=x.device)
     tabs = _dft_tables(stft, x.device)
     params = _lane_params(cfg, M, tc, inv_mode)
+    n_scratch = lib.fused_enhance_full_scratch_floats(M, stft.n_fft)  # lane states that fit no block
+    scratch = torch.empty((B * n_scratch,), dtype=torch.float32, device=x.device) if n_scratch > 0 else None
     err = lib.fused_enhance_full_launch(
-        x.data_ptr(), tabs.data_ptr(), planes.data_ptr(), y.data_ptr(), M, B, stft.n_fft, T,
+        x.data_ptr(), tabs.data_ptr(), planes.data_ptr(), y.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, M, B, stft.n_fft, T,
         stft.synthesis_gain, ctypes.addressof(params), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check_launch("enhance", err, "fused_enhance_full")

@@ -71,8 +71,8 @@ from distantspeech_tpu_torch.ops.fir import fir_filter_offline
 from distantspeech_tpu_torch.transform.stft import StftConfig, _dft_matrices, _idft_matrices, stft_frames
 
 LAUNCHES = {"fused_tdgsc": 0, "fused_kws": 0, "fused_fdgsc": 0}
-_KERNEL_CHANNELS = (1, 3, 7)  # C = M - 1 the K5 templates are instantiated for
-_FDGSC_MICS = (2, 4, 8)  # M the K8 templates are instantiated for
+_KERNEL_CHANNELS = range(1, 8)  # C = M - 1 the K5 templates are instantiated for: 1 to 7
+_FDGSC_MICS = range(2, 9)  # M the K8 templates are instantiated for: 2 to 8
 FDGSC_MAXNORM = 0.003  # the FDGSC AIC's filter-norm ceiling (aic_step's default)
 
 
@@ -357,7 +357,7 @@ def _library(name: str = "flms") -> ctypes.CDLL:
 def tdgsc_frames(bm: torch.Tensor, d: torch.Tensor, yp: torch.Tensor, up, cfg):
     """The K5 kernel: ``tdgsc_frames_plain``'s recursion, one block per
     utterance.  CPU tensors run ``tdgsc_frames_plain``; CUDA tensors launch
-    the kernel (float32, contiguous, C = M - 1 in 1, 3, 7) or raise."""
+    the kernel (float32, contiguous, C = M - 1 from 1 to 7) or raise."""
     if bm.device.type == "cpu":
         return tdgsc_frames_plain(bm, d, yp, up, cfg)
     B, C, S = bm.shape
@@ -366,7 +366,7 @@ def tdgsc_frames(bm: torch.Tensor, d: torch.Tensor, yp: torch.Tensor, up, cfg):
     extra = () if up is None else (up,)
     _build.check_tensors("fused_tdgsc", bm, d, yp, *extra)
     if C not in _KERNEL_CHANNELS:
-        raise ValueError(f"fused_tdgsc: the kernel is built for M - 1 in {_KERNEL_CHANNELS}, got {C}")
+        raise ValueError(f"fused_tdgsc: the kernel is built for M - 1 from 1 to 7 (2 to 8 mics), got {C}")
     if d.shape != (B, S) or yp.shape != (B, T, F) or (up is not None and up.shape != (B, C, T, F)):
         raise ValueError("fused_tdgsc: d must be [B, S'], yp [B, T, F] and up [B, C, T, F]")
     if (up is not None) != cfg.postfilter:
@@ -697,7 +697,7 @@ def _fdgsc_launch(fbf, dbm, daic, yp, cfg, out, p, bm, stream) -> None:
 def fdgsc_frames(fbf, dbm, daic, yp, cfg):
     """The K8 kernel: ``fdgsc_frames_plain``'s recursion, one block per
     utterance.  CPU tensors run ``fdgsc_frames_plain``; CUDA tensors launch
-    the kernel (float32, contiguous, M in 2, 4, 8) or raise."""
+    the kernel (float32, contiguous, M from 2 to 8) or raise."""
     if dbm.device.type == "cpu":
         return fdgsc_frames_plain(fbf, dbm, daic, yp, cfg)
     _build.check_tensors("fused_fdgsc", fbf, dbm, daic, yp)
@@ -705,7 +705,7 @@ def fdgsc_frames(fbf, dbm, daic, yp, cfg):
     Lf = cfg.frame_len
     T, F = S // Lf, Lf + 1
     if M not in _FDGSC_MICS:
-        raise ValueError(f"fused_fdgsc: the kernel is built for M in {_FDGSC_MICS}, got {M}")
+        raise ValueError(f"fused_fdgsc: the kernel is built for M from 2 to 8, got {M}")
     if fbf.shape != (B, S) or daic.shape != (B, S) or yp.shape != (B, T, F) or S % Lf:
         raise ValueError("fused_fdgsc: fbf and daic must be [B, S'], dbm [B, M, S'] and yp [B, T, F]")
     out = torch.empty_like(fbf)

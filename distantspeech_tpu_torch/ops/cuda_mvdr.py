@@ -46,7 +46,7 @@ import torch
 from distantspeech_tpu_torch.ops import _build
 
 LAUNCHES = {"fused_mvdr_scan": 0}
-_KERNEL_MICS = (2, 4, 8)  # the M the CUDA templates are instantiated for
+_KERNEL_MICS = range(2, 9)  # the M the CUDA templates are instantiated for: 2 to 8
 
 
 def _cmul(ar, ai, br, bi):
@@ -380,7 +380,7 @@ def fused_mvdr_scan(
     """The K1 kernel: the gated MVDR frame loop, optionally with the OM-LSA
     gain fused in.  Same arguments and result as ``fused_mvdr_scan_plain``,
     which CPU tensors run; a CUDA tensor launches the kernel (complex64 Z,
-    float32 p and lam, M in 2, 4, 8) or raises."""
+    float32 p and lam, M from 2 to 8) or raises."""
     _validate_scan(Z, p, lam)
     if Z.device.type == "cpu":
         return fused_mvdr_scan_plain(Z, gate, steer, alpha_v, diag, rel_diag, p, lam, alpha_xi, gmin)
@@ -388,7 +388,7 @@ def fused_mvdr_scan(
     if Z.dtype != torch.complex64:
         raise ValueError(f"fused_mvdr_scan: the kernel takes complex64 spectra, got {Z.dtype}")
     if M not in _KERNEL_MICS:
-        raise ValueError(f"fused_mvdr_scan: the kernel is built for M in {_KERNEL_MICS}, got M={M}")
+        raise ValueError(f"fused_mvdr_scan: the kernel is built for M from 2 to 8, got M={M}")
     Zf = torch.view_as_real(Z.contiguous())  # [T, B, F, M, 2]
     g = gate.to(torch.float32).contiguous()
     sv = torch.view_as_real(torch.as_tensor(steer, device=Z.device).to(torch.complex64).contiguous())

@@ -22,11 +22,13 @@ in ``stats.linalg.gauss_jordan_inv``'s elimination order without pivoting,
 the repair inverse only on the lanes where xi < 0, and the loading from one
 q-band mean a frame.  It does every transform as one dense product against
 the packed sqrt-Hann matrices (``cuda_flms.windowed_dft_packed``, the
-synthesis gain folded in); the kernel does them as radix-2 FFTs.  So
+synthesis gain folded in); the kernel does them as warp-owned radix-8 FFTs
+on real pairs packed into complex ones (``csrc/flms_fft.cuh``).  So
 ``chip_smoke.py`` can count the elementwise work a frame needs on it.  The
 TPU's 384-lane padding, its ``sub`` row tiling, the VMEM-fit ``t_chunk``
 and the split real / imaginary planes are dropped; any B >= 1 is taken,
-M = 4 only (McSpp's CDR is the 4-channel one).
+M = 4 only (McSpp's CDR is the 4-channel one); the kernel takes frame_len
+64, 128 and 256 (a thread a bin of its 512-thread block).
 """
 
 from __future__ import annotations
@@ -361,6 +363,8 @@ def subband_gsc_frames(sig: torch.Tensor, sf: torch.Tensor, cfg, decisions: bool
     T, F = S // L, L + 1
     if C != 5 or S % L or sf.shape != (B, T, F):
         raise ValueError("fused_subband_gsc: sig must be [B, 5, S'] with S' whole frames and sf [B, T, F]")
+    if L not in (64, 128, 256):
+        raise ValueError(f"fused_subband_gsc: the kernel takes frame_len 64, 128 or 256, got {L}")
     dev = sig.device
     out = torch.empty((B, S), dtype=torch.float32, device=dev)
     p = torch.empty((B, T, F), dtype=torch.float32, device=dev)

@@ -82,8 +82,8 @@ def srp_spectrum(y2: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     R, F, M2 = y2.shape
     if G.ndim != 3 or G.shape[:2] != (F, M2) or G.shape[2] % 2:
         raise ValueError(f"fused_srp_spectrum: G must be [F={F}, 2M={M2}, 2 Theta], got {tuple(G.shape)}")
-    if M2 // 2 not in (2, 4, 8):
-        raise ValueError(f"fused_srp_spectrum: the kernel is built for M in (2, 4, 8), got {M2 // 2}")
+    if M2 // 2 not in range(2, 9):
+        raise ValueError(f"fused_srp_spectrum: the kernel is built for M from 2 to 8, got {M2 // 2}")
     Theta = G.shape[2] // 2
     out = torch.empty((R, Theta), dtype=torch.float32, device=y2.device)
     err = _library().fused_srp_launch(

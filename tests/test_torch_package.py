@@ -21,7 +21,7 @@ from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig, tdgsc_process
 from distantspeech_tpu_torch.doa import srp_process
 from distantspeech_tpu_torch.kws import kws_process
 from distantspeech_tpu_torch.ops import cuda_aec as ca, cuda_enhance as ce, cuda_flms as cf, cuda_mvdr as cm
-from distantspeech_tpu_torch.ops import cuda_sgsc as cs, cuda_srp as cr
+from distantspeech_tpu_torch.ops import cuda_mcra as cmc, cuda_sgsc as cs, cuda_srp as cr
 from distantspeech_tpu_torch.runtime import profiling
 from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, full_stack_process
 
@@ -91,7 +91,7 @@ def test_the_card_is_the_default_device(monkeypatch):
 
 
 def test_cpu_tensors_leave_launches_at_zero():
-    for mod in (ca, ce, cf, cm, cs, cr):
+    for mod in (ca, ce, cf, cm, cmc, cs, cr):
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
     x = np.random.default_rng(0).standard_normal((1, 2, 128 * 6)).astype(np.float32)
@@ -117,6 +117,7 @@ def test_cpu_tensors_leave_launches_at_zero():
     assert cs.LAUNCHES == {"fused_subband_gsc": 0} and cr.LAUNCHES == {"fused_srp_spectrum": 0}
     assert ce.LAUNCHES == {"fused_enhance": 0, "fused_enhance_full": 0} and cm.LAUNCHES == {"fused_mvdr_scan": 0}
     assert cf.LAUNCHES == {"fused_tdgsc": 0, "fused_kws": 0, "fused_fdgsc": 0} and ca.LAUNCHES == {"fused_aec": 0}
+    assert cmc.LAUNCHES == {"mcra_run": 0}  # the pallas and SRP paths' MCRA ran as the plain version
 
 
 def test_timing_needs_a_card(monkeypatch):

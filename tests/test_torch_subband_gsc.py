@@ -186,6 +186,32 @@ def test_mcspp_long_run_where_the_cdr_radicand_cancels():
     assert np.abs(t32 - t64).max() < 2e-3 < np.abs(j32 - j64).max()
 
 
+def test_mcspp_float32_p_gap_to_jax():
+    """The port's float32 McSpp p against JAX's float32 p, step by step, over
+    48 frames at F=65 with the McCDR's MCRA window cut to L=3, so that p
+    moves: the two differ only in the CDR radicand's form and in rounding.
+    The gap is 2.2e-05 here, held below 1e-4; over B5's 250 frames at F=257
+    JAX's radicand cancels and its float32 p leaves K9's 2e-3 gate of
+    float64 (test_mcspp_long_run_where_the_cdr_radicand_cancels)."""
+    T, B, nfft = 48, 2, 128
+    Y = _spectra(T, B, nfft // 2 + 1, 4, 3)
+    cj, ct = J_SHORT[1](nfft=nfft), T_SHORT[1](nfft=nfft)
+    Fn = cj.mccdr.fn_pair()
+    step = jax.jit(jspp.mcspp_step, static_argnums=0)
+    sj = jspp.mcspp_init(cj, (B,), cdtype=jnp.complex64)
+    st = tspp.mcspp_init(ct, (B,), cdtype=torch.complex64, device="cpu")
+    Fj, Ft = jnp.asarray(Fn, dtype=jnp.float32), torch.as_tensor(Fn, dtype=torch.float32)
+    pj, pt = [], []
+    for t in range(T):
+        sj, oj = step(cj, Fj, sj, jnp.asarray(Y[t], dtype=jnp.complex64))
+        st, ot = tspp.mcspp_step(ct, Ft, st, torch.as_tensor(Y[t], dtype=torch.complex64))
+        pj.append(np.asarray(oj.p))
+        pt.append(ot.p.numpy())
+    pj, pt = np.stack(pj), np.stack(pt)
+    assert pt.dtype == np.float32 and ((pt > 0.05) & (pt < 0.95)).mean() > 0.2  # p moves
+    assert np.abs(pt - pj).max() < 1e-4
+
+
 def test_plain_k9_inverse_from_hermitian_storage():
     """K9's plain inverse and repair take the covariance in hermitian storage
     (the real diagonal, the 6 upper entries in csrc/sgsc.cu's order) and a
