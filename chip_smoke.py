@@ -100,7 +100,18 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    and the MCRA lane kernel, which is held to its plain version on that
    input; the summed spectrum's pick within 3 degrees of
    arccos(c / (0.032 fs)) or its mirror); timings;
-14. the JAX package's parity protocol (``benchmarks/pipelines.py``'s gates:
+14. the shapes beyond 8 mics and beyond the powers of two: K1 at 12, 16
+   and 32 mics, K2 and K4 at 16, K5 (core and postfilter), K8 and K10 at 12
+   and 16, each against its plain version at its gate size and tolerance,
+   and timed at its main path's size; then a record for each new
+   instantiation (12 mics through ``pallas``, ``fused``, ``mega``, the
+   TDGSC, the FDGSC and SRP-PHAT; ``mega`` at n_fft 768, 1280 and 2048 with
+   8 mics), each through its own path at its main path's size (B=64 x 4 s
+   for K1, K2 and K4, B=128 for K5 and K8, B=8 for K10) with the launch
+   counts reset just before and read just after, held to its plain version
+   on that path's input (K2 and K4 also with the guard off, < 1e-3), timed,
+   with its bound from that input;
+15. the JAX package's parity protocol (``benchmarks/pipelines.py``'s gates:
    B=2 utterances of standard normal noise, the first draw of seed 1, 16384
    samples a mic; the fused path against the float32 ``scan`` on the card)
    for all nine rows (``enhance_pallas``, ``enhance_fused``,
@@ -109,8 +120,14 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    ``srp_fused``), each printed beside its JAX ``gate_rel`` and held to it,
    or, where the port cannot meet it, to the JAX harness's own tolerance
    (``GATE_ROWS``); with each row's plain version's gaps, the full stack's
-   stages and K6 built without fused multiply-adds;
-15. the ``kernels`` JSON line, the card line, and the final JSON line.
+   stages and K6 built without fused multiply-adds; ``kws_fused``'s input
+   is shorter than K6's tap FIFO, which the row says, and a companion line
+   runs it with the defer cut so that the FIFO wraps (< 1e-3);
+16. the ``kernels`` JSON line, the card line, and the final JSON line.
+
+K1 and K6 also print a chain floor beside their bound: T frames times the
+longest dependent chain of one frame on the kernel's layout, counted from
+its code, at 4 cycles an operation and the card's maximum SM clock.
 """
 
 from __future__ import annotations
@@ -325,6 +342,7 @@ def main() -> int:
     kernels += smoke_slice_c(dev, card, B=128, seconds=4)
     kernels += smoke_k9(dev, card, B=128, seconds=4)
     kernels += smoke_k10(dev, card, B=8, seconds=4)
+    kernels += smoke_wide(dev, card, seconds=4)
     smoke_gate_rel(dev, card)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included", flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -338,6 +356,42 @@ def bound(nbytes, nops):
     """The least time the card could take: (ms, 'bytes' or 'operations')."""
     tb, to = nbytes / H100_HBM_BYTES, float(nops) / H100_FP32_FLOPS
     return max(tb, to) * 1e3, ("bytes" if tb > to else "operations")
+
+
+FP32_DEP_CYCLES = 4  # cycles from a float32 operation to one that depends on it, on an H100 SM
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi), for the chain floors."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def chain_ms(T: int, dep_ops: int) -> float:
+    """The chain floor of a frame recursion: T frames, each dep_ops
+    dependent float32 operations long, at FP32_DEP_CYCLES a step and the
+    card's maximum SM clock."""
+    return T * dep_ops * FP32_DEP_CYCLES / (sm_clock_mhz() * 1e6) * 1e3
+
+
+def k6_chain_ops(logN: int) -> int:
+    """Dependent float32 operations on one frame's longest chain in
+    csrc/kws.cu, counted from its code: the chain's 4 transforms (the tap
+    spectrum, the inverse of the ANC output, the error transform, the gradient
+    inverse), log2 N radix-2 stages each, a twiddle product and a
+    butterfly sum (3) a stage; and between them the product X Wz into the
+    inverse's spectrum (3), e = d - y / N (2), the gradient conj(X) E / P into
+    its spectrum (4) and the tap update (3).  Barriers and shared-memory
+    latency are not counted, so the floor lies below any run."""
+    return 4 * 3 * logN + 3 + 2 + 4 + 3
+
+
+def timed_ms(fn, *args, n: int = 3) -> float:
+    """Median device ms of n calls (CUDA events) after a warm-up call, for
+    the kernels too slow for ``benchmark``'s iteration pairs."""
+    fn(*args)
+    return float(np.median([timed_once(fn, *args)[1] for _ in range(n)]))
 
 
 def timed_once(fn, *args):
@@ -533,6 +587,30 @@ def smoke(dev, card: str, B: int, seconds: int) -> list:
               f"{plain_s[kname] * 1e3:.1f} ms {tag}", flush=True)
 
     # ---- bounds: bytes moved once, and the operations this input needs -------------
+    b_full, by_full, b_lanes, by_lanes = enhance_bounds(x, cfg, tc, Z, Sf, planes)
+
+    return [
+        {"name": "fused_enhance_full", "route": "cuda", "source": "distantspeech_tpu_torch/csrc/enhance.cu",
+         "replaces": "distantspeech_tpu/ops/pallas_enhance.py:391", "launches": launches["fused_enhance_full"],
+         "max_abs_err": main_err[("fused_enhance_full", "benched")],
+         "ms": times[("fused_enhance_full", "rank1")] * 1e3, "plain_ms": plain_s["fused_enhance_full"] * 1e3,
+         "bound_ms": b_full, "bound_by": by_full, "library_ms": None},
+        {"name": "fused_enhance", "route": "cuda", "source": "distantspeech_tpu_torch/csrc/enhance.cu",
+         "replaces": "distantspeech_tpu/ops/pallas_enhance.py:123", "launches": launches["fused_enhance"],
+         "max_abs_err": main_err[("fused_enhance", "benched")],
+         "ms": times[("fused_enhance", "rank1")] * 1e3, "plain_ms": plain_s["fused_enhance"] * 1e3,
+         "bound_ms": b_lanes, "bound_by": by_lanes, "library_ms": None},
+    ]
+
+
+def enhance_bounds(x, cfg, tc, Z, Sf, planes, label=""):
+    """The bounds of K4 (waveform in and out) and K2 (spectra in and out) on
+    x [B, M, S] with its spectra Z, Sf and steering planes: bytes moved
+    once, and the operations this input needs (the lane frames whose gate
+    opens, from the port's MCRA); printed, and returned as (K4 ms, by,
+    K2 ms, by)."""
+    B, M, S = x.shape
+    T = S // cfg.stft.hop
     ops = lane_ops(M)
     n_warm, n_steady, n_lanes = open_lane_frames(x, cfg, tc)
     lane_total = (n_warm * ops["open_ldl"] + n_steady * ops["open_rank1"]
@@ -552,23 +630,11 @@ def smoke(dev, card: str, B: int, seconds: int) -> list:
     lanes_bytes = 4 * (Z.numel() + Sf.numel() + planes.numel() + 2 * T * B * cfg.stft.half_bin)
     b_full, by_full = bound(full_bytes, dft_ops + lane_total)
     b_lanes, by_lanes = bound(lanes_bytes, lane_total)
-    print(f"bound fused_enhance_full: {b_full:.4f} ms by {by_full} ({full_bytes} B, {dft_ops + lane_total:.4g} ops "
-          f"with the DFTs as real FFTs; with them as dense products, {gemm_ops + lane_total:.4g} ops, "
-          f"{bound(full_bytes, gemm_ops + lane_total)[0]:.4f} ms)")
-    print(f"bound fused_enhance kernel: {b_lanes:.4f} ms by {by_lanes} ({lanes_bytes} B, {lane_total:.4g} ops)")
-
-    return [
-        {"name": "fused_enhance_full", "route": "cuda", "source": "distantspeech_tpu_torch/csrc/enhance.cu",
-         "replaces": "distantspeech_tpu/ops/pallas_enhance.py:391", "launches": launches["fused_enhance_full"],
-         "max_abs_err": main_err[("fused_enhance_full", "benched")],
-         "ms": times[("fused_enhance_full", "rank1")] * 1e3, "plain_ms": plain_s["fused_enhance_full"] * 1e3,
-         "bound_ms": b_full, "bound_by": by_full, "library_ms": None},
-        {"name": "fused_enhance", "route": "cuda", "source": "distantspeech_tpu_torch/csrc/enhance.cu",
-         "replaces": "distantspeech_tpu/ops/pallas_enhance.py:123", "launches": launches["fused_enhance"],
-         "max_abs_err": main_err[("fused_enhance", "benched")],
-         "ms": times[("fused_enhance", "rank1")] * 1e3, "plain_ms": plain_s["fused_enhance"] * 1e3,
-         "bound_ms": b_lanes, "bound_by": by_lanes, "library_ms": None},
-    ]
+    print(f"bound fused_enhance_full{label}: {b_full:.4f} ms by {by_full} ({full_bytes} B, "
+          f"{dft_ops + lane_total:.4g} ops with the DFTs as real FFTs; with them as dense products, "
+          f"{gemm_ops + lane_total:.4g} ops, {bound(full_bytes, gemm_ops + lane_total)[0]:.4f} ms)")
+    print(f"bound fused_enhance kernel{label}: {b_lanes:.4f} ms by {by_lanes} ({lanes_bytes} B, {lane_total:.4g} ops)")
+    return b_full, by_full, b_lanes, by_lanes
 
 
 def k1_lane_ops(M, gain: bool):
@@ -596,6 +662,65 @@ def k1_lane_ops(M, gain: bool):
     return {"open": closed + upd[True], "closed": closed}
 
 
+def k1_bound(name, Zt, gate, steer, gain: bool):
+    """K1's bound on spectra Zt [T, B, F, M] and its gate: bytes moved once,
+    operations of this run's gate; printed, and returned as (ms, by)."""
+    M = Zt.shape[-1]
+    ops = k1_lane_ops(M, gain)
+    n_open = int(gate.sum())
+    n_lanes = gate.numel()
+    nbytes = Zt.numel() * 8 + n_lanes * 4 * (3 if gain else 1) + steer.numel() * 8 + n_lanes * 8
+    nops = n_open * ops["open"] + (n_lanes - n_open) * ops["closed"]
+    b, by = bound(nbytes, nops)
+    print(f"bound {name}: {b:.4f} ms by {by} ({nbytes} B, {nops:.4g} ops; {ops} per lane-frame, "
+          f"{n_open} of {n_lanes} lane-frames open)", flush=True)
+    return b, by
+
+
+def k1_chain_ops(M: int, gain: bool) -> float:
+    """Dependent float32 operations on the longest chain of one open-gate
+    frame in csrc/mvdr.cu, counted from its code.  Up to 16 mics (the
+    frame-parallel layout, 4 frames solved at once): every frame's rank-1
+    update of an entry (4) and the gain's carry (5), plus a quarter of one
+    frame's solve, which runs beside three others: the LDL^H factorisation
+    (column j: its diagonal's j subtractions, 1 / D_j and the scale, M (M -
+    1) / 2 + 2 M), the forward and back solves (M (M + 1) / 2 each), the
+    scale by 1 / D (1) and the output's running sums and division (M + 5).
+    Above 16 (the column layout, G threads a lane): the update (4); the
+    trace's reduction, its scale and the loading (log2 G + 2); per
+    factorisation step the owner's 1 / D_k and L[:, k] (2) and a later
+    column's term L[i][k] conj(L[c][k]) D_k subtracted (4); v's scaling
+    (1); the back solve, M (M - 1) / 2 terms of a complex product and a
+    subtraction (3 each); the output's terms, their reduction, |den|^2, the
+    division and the product (7 + log2 G); the gain (16).  Shuffles, loads
+    and barriers are not counted, so the floor lies below any run."""
+    if M <= 16:
+        solve = M * (M - 1) // 2 + 2 * M + M * (M + 1) + 1 + M + 5
+        return 4 + (5 if gain else 0) + solve / 4
+    G = min(32, 1 << (M - 1).bit_length())
+    lg = G.bit_length() - 1
+    return 4 + (lg + 2) + 6 * M + 1 + 3 * M * (M - 1) // 2 + (7 + lg) + (16 if gain else 0)
+
+
+def k1_chain_ms(T: int, M: int, gain: bool) -> float:
+    return chain_ms(T, k1_chain_ops(M, gain))
+
+
+def k1_inputs(x, cfg):
+    """What ``enhance_scan_pallas`` hands K1: spectra, gate, p, lambda_d."""
+    import torch
+
+    from distantspeech_tpu_torch.noise.mcra import mcra_run
+    from distantspeech_tpu_torch.transform import analysis
+
+    Zt = torch.movedim(torch.movedim(analysis(x, cfg.stft), -3, -1), -3, 0).contiguous()
+    lam, p, sr = mcra_run(cfg.mvdr.mcra, Zt[..., 0].abs() ** 2, return_sr=True)
+    gate = p < cfg.mvdr.p_vad
+    if cfg.mvdr.vad_guard:
+        gate = gate & (sr <= cfg.mvdr.mcra.delta_s)
+    return Zt, gate.float(), p, lam
+
+
 def smoke_k1(dev, card: str, B: int, seconds: int) -> list:
     """Phase 7: kernel K1 at the gate size and on the ``pallas`` path."""
     import torch
@@ -608,7 +733,6 @@ def smoke_k1(dev, card: str, B: int, seconds: int) -> list:
     from distantspeech_tpu_torch.ops import _build
     from distantspeech_tpu_torch.ops import cuda_mvdr as cm
     from distantspeech_tpu_torch.runtime.profiling import benchmark
-    from distantspeech_tpu_torch.transform import analysis
 
     tag = f"[{card}]"
     M = 8
@@ -618,15 +742,6 @@ def smoke_k1(dev, card: str, B: int, seconds: int) -> list:
     nog_cfg = EnhanceConfig(mvdr=MvdrConfig(**{**bench_cfg.mvdr.__dict__, "vad_guard": False}))
     steer = torch.as_tensor(steering_vector(geom, np.asarray(look) / 180.0 * np.pi, bench_cfg.stft.n_fft)
                             .astype(np.complex64), device=dev)
-
-    def k1_inputs(x, cfg):
-        """What ``enhance_scan_pallas`` hands K1: spectra, gate, p, lambda_d."""
-        Zt = torch.movedim(torch.movedim(analysis(x, cfg.stft), -3, -1), -3, 0).contiguous()
-        lam, p, sr = mcra_run(cfg.mvdr.mcra, Zt[..., 0].abs() ** 2, return_sr=True)
-        gate = p < cfg.mvdr.p_vad
-        if cfg.mvdr.vad_guard:
-            gate = gate & (sr <= cfg.mvdr.mcra.delta_s)
-        return Zt, gate.float(), p, lam
 
     def k1_args(cfg, gain, Zt, gate, p, lam):
         mv = cfg.mvdr
@@ -719,17 +834,14 @@ def smoke_k1(dev, card: str, B: int, seconds: int) -> list:
     t_path = benchmark(enhance_process, x, geom, look, bench_cfg, "pallas")["per_call_s"]
     print(f"backend=pallas end to end: {t_path * 1e3:.3f} ms/call, {B * S / FS / t_path:.0f} audio-s/s {tag}", flush=True)
 
-    # ---- bounds: bytes moved once, operations of this run's gate
-    ops = {g: k1_lane_ops(M, g) for g in (True, False)}
-    n_open = int(ins[1].sum())
-    n_lanes = ins[1].numel()
+    # ---- bounds: bytes moved once, operations of this run's gate; and the
+    # chain floor of the new layout
     recs = []
     for gain, name in ((True, "fused_mvdr_scan"), (False, "fused_mvdr_scan (no gain)")):
-        nbytes = Zt.numel() * 8 + n_lanes * 4 * (3 if gain else 1) + steer.numel() * 8 + n_lanes * 8
-        nops = n_open * ops[gain]["open"] + (n_lanes - n_open) * ops[gain]["closed"]
-        b, by = bound(nbytes, nops)
-        print(f"bound {name}: {b:.4f} ms by {by} ({nbytes} B, {nops:.4g} ops; {ops[gain]} per lane-frame, "
-              f"{n_open} of {n_lanes} lane-frames open)", flush=True)
+        b, by = k1_bound(name, Zt, ins[1], steer, gain)
+        print(f"chain floor {name}: {k1_chain_ms(T, M, gain):.4f} ms (T={T} frames x {k1_chain_ops(M, gain):g} "
+              f"dependent operations of an open-gate frame at {FP32_DEP_CYCLES} cycles each, {sm_clock_mhz():.0f} "
+              f"MHz) {tag}", flush=True)
         recs.append({"name": name, "route": "cuda", "source": "distantspeech_tpu_torch/csrc/mvdr.cu",
                      "replaces": "distantspeech_tpu/ops/pallas_mvdr.py:" + ("373" if gain else "346"),
                      "launches": launches_gain if gain else launches_nogain, "max_abs_err": err[gain],
@@ -961,6 +1073,12 @@ def frame_ops(run, T):
     return counted(run, T, per_element=True) - counted(run, T - 1, per_element=True)
 
 
+def pin_flips(p, p_want):
+    """K8's frames whose low-bin pinning decision (mean p over bins 32..127
+    above 0.8; those bins are never pinned) differs."""
+    return int(((p[..., 32:128].mean(-1) > 0.8) != (p_want[..., 32:128].mean(-1) > 0.8)).sum())
+
+
 def gate_flips(name, flips, total, what):
     """The gate of a kernel whose plain version can take another discrete
     decision: the tight gate, unless decisions flipped (then the
@@ -1003,11 +1121,6 @@ def smoke_slice_c(dev, card: str, B: int, seconds: int) -> list:
         fbf, bm = cf.front_end(cf._check(x, gcfg), geom, look, gcfg)
         bm = bm.contiguous()
         return (bm, *(a.contiguous() for a in cf._kernel_inputs(fbf, bm, gcfg)))
-
-    def pin_flips(p, p_want):
-        """Frames whose low-bin pinning decision (mean p over bins 32..127
-        above 0.8; those bins are never pinned) differs."""
-        return int(((p[..., 32:128].mean(-1) > 0.8) != (p_want[..., 32:128].mean(-1) > 0.8)).sum())
 
     def hold_aec(farp, xp, where):
         """K7 against its plain version; returns (out, max abs err, plain ms).
@@ -1171,6 +1284,9 @@ def smoke_slice_c(dev, card: str, B: int, seconds: int) -> list:
         recs.append({"name": name, "route": "cuda", "source": f"distantspeech_tpu_torch/csrc/{src}",
                      "replaces": f"distantspeech_tpu/ops/{line}", "launches": launches[name], "max_abs_err": err,
                      "ms": ms_k, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+    logN = int(np.log2(N))
+    print(f"chain floor fused_kws: {chain_ms(T, k6_chain_ops(logN)):.4f} ms (T={T} frames x {k6_chain_ops(logN)} "
+          f"dependent operations at {FP32_DEP_CYCLES} cycles each, {sm_clock_mhz():.0f} MHz) {tag}", flush=True)
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- 11. the FDGSC (B4) at full size ---------------------------------------
@@ -1508,6 +1624,316 @@ def smoke_k10(dev, card: str, B: int, seconds: int) -> list:
              "library_ms": lib_ms}]
 
 
+def smoke_wide(dev, card: str, seconds: int) -> list:
+    """Phase 14: the shapes beyond 8 mics and beyond the powers of two.
+    Gates, each kernel against its plain version: K1 at 12, 16 and 32 mics
+    (the benched config's gate, p and lambda_d on both sides, B=8 x 1 s,
+    < 1e-4); K2 and K4 at 16 mics (guard off, rank1, B=4 x 125 frames,
+    < 1e-3); K5 (core and postfilter) and K8 at 12 and 16 mics and K10 at 12
+    and 16 (their gate sizes and tolerances); times of the shapes without a
+    record at their main paths' sizes.  Then a record for each new
+    instantiation, through its own path at its main path's size (``pallas``,
+    ``fused`` and ``mega`` at 12 mics and ``mega`` at n_fft 768, 1280 and
+    2048 with 8: B=64 x ``seconds``; the TDGSC and FDGSC at 12 mics: B=128;
+    SRP-PHAT at 12 mics: B=8), launch counts reset just before and read just
+    after, held to its plain version on that path's input (K2 and K4 with
+    the benched config at 2e-2 and with the guard off at 1e-3), timed, with
+    its bound from that input."""
+    import torch
+
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+    from distantspeech_tpu_torch.array.steering import steering_vector
+    from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, enhance_process
+    from distantspeech_tpu_torch.beamform.fdgsc import FdGscConfig, fdgsc_process
+    from distantspeech_tpu_torch.beamform.mvdr import MvdrConfig
+    from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig, tdgsc_process
+    from distantspeech_tpu_torch.doa.srp import SrpConfig, srp_angle_spectrum, srp_process, srp_steering_grid
+    from distantspeech_tpu_torch.ops import cuda_enhance as ce
+    from distantspeech_tpu_torch.ops import cuda_flms as cf
+    from distantspeech_tpu_torch.ops import cuda_mvdr as cm
+    from distantspeech_tpu_torch.ops import cuda_srp as cr
+    from distantspeech_tpu_torch.transform import analysis
+    from distantspeech_tpu_torch.transform.stft import StftConfig
+
+    tag = f"[{card}]"
+    t_phase = time.perf_counter()
+    look_deg, look = (90.0, 0.0), (np.pi / 2, 0.0)
+    bench_cfg = EnhanceConfig()
+    nog = {**bench_cfg.mvdr.__dict__, "vad_guard": False}
+    S = seconds * FS
+
+    def steer_for(M, n_fft):
+        return steering_vector(ArrayGeometry.linear(M, 0.032), np.asarray(look_deg) / 180.0 * np.pi,
+                               n_fft).astype(np.complex64)
+
+    def enh_cfg(n_fft, guard=True):
+        mv = {**bench_cfg.mvdr.__dict__, "stft": StftConfig(n_fft, n_fft // 2)}
+        if not guard:
+            mv["vad_guard"] = False
+        return EnhanceConfig(mvdr=MvdrConfig(**mv))
+
+    def k1_args(Zt, gate, p, lam, steer, gain=True):
+        mv = bench_cfg.mvdr
+        return (Zt, gate, steer, mv.alpha_v, mv.diag, mv.rel_diag, p if gain else None, lam if gain else None,
+                bench_cfg.alpha_xi, bench_cfg.gmin)
+
+    def y_rel(got, want):
+        return rel_err(torch.view_as_real(got), torch.view_as_real(want))
+
+    def k5_inputs(x, cfg, geom):
+        fbf, bm = cf.front_end(cf._check(x, cfg), geom, look, cfg)
+        bm = bm.contiguous()
+        return (bm, *(a.contiguous() if a is not None else None for a in cf._kernel_inputs(fbf, bm, cfg)))
+
+    def k8_inputs(x, cfg, geom):
+        return tuple(a.contiguous() for a in cf.fdgsc_front_end(cf._fdgsc_check(x, cfg), geom, look, cfg))
+
+    def srp_rows(x, geom, cfg):
+        Y = torch.movedim(torch.movedim(analysis(x, cfg.stft), -3, -1), -3, 0)
+        return cr.whitened_rows(Y).contiguous(), cr.pack_grid(srp_steering_grid(cfg, geom), dev)
+
+    times = []
+
+    # ---- K1 at 12, 16 and 32 mics (12 timed with its record below)
+    for Ms in (12, 16, 32):
+        stm = torch.as_tensor(steer_for(Ms, 256), device=dev)
+        args = k1_args(*k1_inputs(torch.as_tensor(scene(8, Ms, FS, seed=1)[0], device=dev), bench_cfg), stm)
+        rel, mx = y_rel(cm.fused_mvdr_scan(*args), cm.fused_mvdr_scan_plain(*args))
+        check(rel < K1_GATE, f"fused_mvdr_scan gain=True benched, M={Ms} vs plain (B=8, 1 s): rel {rel:.3e} "
+                             f"(max abs {mx:.3e}) < {K1_GATE:g}")
+        if Ms != 12:
+            big = k1_args(*k1_inputs(torch.as_tensor(scene(64, Ms, S, seed=2)[0], device=dev), bench_cfg), stm)
+            times.append((f"fused_mvdr_scan M={Ms} (B=64 x {seconds} s)", timed_ms(cm.fused_mvdr_scan, *big)))
+            del big
+
+    # ---- K2 and K4 at 16 mics (guard off, rank1, B=4 x 125 frames, < 1e-3);
+    # 12 mics and K4 at n_fft 768, 1280 and 2048 are held on their records'
+    # inputs below
+    cs_ = enh_cfg(256, guard=False)
+    xs_ = torch.as_tensor(scene(4, 16, 125 * 128, seed=3)[0], device=dev)
+    st_ = steer_for(16, 256)
+    want = ce.fused_enhance_plain(xs_, st_, cs_, 25, "rank1")
+    for kname, fn in (("fused_enhance", ce.fused_enhance), ("fused_enhance_full", ce.fused_enhance_full)):
+        got = fn(xs_, st_, cs_, 25, "rank1")
+        torch.cuda.synchronize()
+        rel, mx = rel_err(got, want)
+        check(bool(torch.isfinite(got).all()) and rel < TIGHT,
+              f"{kname} rank1 guard off, n_fft=256, M=16 vs plain: rel {rel:.3e} (max abs {mx:.3e}) < {TIGHT:g}")
+    xm = torch.as_tensor(scene(64, 16, S, seed=2)[0], device=dev)
+    tm = ce._pick_t_chunk(S // 128) or 64
+    c_main = enh_cfg(256)
+    times.append((f"fused_enhance_full n_fft=256 M=16 (B=64 x {seconds} s)",
+                  timed_ms(ce.fused_enhance_full, xm, st_, c_main, tm, "rank1")))
+    xt, planes, _ = ce._prepare(xm, st_, c_main, tm, "rank1")
+    Z = ce._analysis_planes(xt, c_main.stft)
+    Sf = ce._smoothed_power(Z, c_main.mvdr.mcra.b).contiguous()
+    times.append((f"fused_enhance kernel M=16 (B=64 x {seconds} s)",
+                  timed_ms(ce.enhance_lanes, Z, Sf, planes, c_main, tm, "rank1")))
+    del Z, Sf, xt, xm
+
+    # ---- K5 (core and postfilter) and K8 at 12 and 16 mics (12 timed with
+    # their records below)
+    for Ms in (12, 16):
+        gm = ArrayGeometry.linear(Ms, 0.032)
+        xm = torch.as_tensor(scene(8, Ms, FS, seed=3)[0], device=dev)
+        xbig = torch.as_tensor(scene(128, Ms, S, seed=4)[0], device=dev) if Ms != 12 else None
+        for pf in (False, True):
+            c5 = TdGscConfig(n_mics=Ms, postfilter=pf)
+            ins = k5_inputs(xm, c5, gm)
+            (got, p), (want, p_want) = cf.tdgsc_frames(*ins, c5), cf.tdgsc_frames_plain(*ins, c5)
+            torch.cuda.synchronize()
+            rel, mx = rel_err(got, want)
+            check(bool(torch.isfinite(got).all()) and rel < TIGHT,
+                  f"fused_tdgsc {'postfilter' if pf else 'core'}, M={Ms} vs plain (B=8, 1 s): rel {rel:.3e} "
+                  f"(max abs {mx:.3e}) < {TIGHT:g}; p max abs {float((p - p_want).abs().max()):.3e}")
+            if xbig is not None or pf:
+                xt5 = xbig if xbig is not None else torch.as_tensor(scene(128, Ms, S, seed=4)[0], device=dev)
+                times.append((f"fused_tdgsc {'postfilter' if pf else 'core'} M={Ms} (B=128 x {seconds} s)",
+                              timed_ms(cf.tdgsc_frames, *k5_inputs(xt5, c5, gm), c5)))
+        c8 = FdGscConfig(n_mics=Ms)
+        ins = k8_inputs(xm, c8, gm)
+        (o, p, bm), (wo, wp, wb) = cf.fdgsc_frames(*ins, c8), cf.fdgsc_frames_plain(*ins, c8)
+        torch.cuda.synchronize()
+        tol = gate_flips(f"fused_fdgsc M={Ms} (B=8, 1 s)", pin_flips(p, wp), wp.shape[0] * wp.shape[1],
+                         "low-bin pinning decisions")
+        rel, mx = rel_err(o, wo)
+        rel_bm = rel_err(bm, wb)[0]
+        check(all(bool(torch.isfinite(a).all()) for a in (o, p, bm)) and rel < tol and rel_bm < tol,
+              f"fused_fdgsc M={Ms} vs plain (B=8, 1 s): out rel {rel:.3e} (max abs {mx:.3e}), bm rel {rel_bm:.3e}, "
+              f"p max abs {float((p - wp).abs().max()):.3e}, all < {tol:g}")
+        if xbig is not None:
+            times.append((f"fused_fdgsc M={Ms} (B=128 x {seconds} s)",
+                          timed_ms(cf.fdgsc_frames, *k8_inputs(xbig, c8, gm), c8)))
+        del xbig
+
+    # ---- K10 at 12 and 16 mics (12 timed with its record below)
+    scfg = SrpConfig()
+    for Ms in (12, 16):
+        gm = ArrayGeometry.linear(Ms, 0.032)
+        xm = torch.as_tensor(np.random.default_rng(12).standard_normal((2, Ms, FS)).astype(np.float32), device=dev)
+        y2, G = srp_rows(xm, gm, scfg)
+        rel, mx = rel_err(cr.srp_spectrum(y2, G), cr.srp_spectrum_plain(y2, G))
+        check(rel < SRP_GATE, f"fused_srp_spectrum M={Ms} vs its plain version (B=2, 1 s): rel {rel:.3e} "
+                              f"(max abs {mx:.3e}) < {SRP_GATE:g}")
+        if Ms != 12:
+            y2b, Gb = srp_rows(torch.as_tensor(doa_scene(8, Ms, S, seed=13), device=dev), gm, scfg)
+            times.append((f"fused_srp_spectrum M={Ms} (B=8 x {seconds} s)", timed_ms(cr.srp_spectrum, y2b, Gb)))
+    for name, ms in times:
+        print(f"wide shape time, {name}: {ms:.3f} ms/call (median of 3) {tag}", flush=True)
+    print(f"phase 14 gates and times: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- the records: each new instantiation through its own path at its
+    # main path's size (K1, K2, K4: B=64; K5, K8: B=128; K10: B=8)
+    recs = []
+
+    def record(name, src, line, launches, err, ms, plain_ms, b_ms, by, library_ms=None):
+        recs.append({"name": name, "route": "cuda", "source": f"distantspeech_tpu_torch/csrc/{src}",
+                     "replaces": f"distantspeech_tpu/ops/{line}", "launches": launches, "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms})
+
+    def path(name, run, kernel, other=()):
+        """Run a path with the counts reset just before and read just
+        after; it must launch ``kernel`` once (and ``other`` once each)."""
+        reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {kernel: 1, **{k: 1 for k in other}}
+        check({k: counts[k] for k in want} == want and sum(counts.values()) == len(want),
+              f"{name} launched {', '.join(want)} once each: {counts}")
+        return out, counts[kernel]
+
+    M, B = 12, 64
+    geom, steer = ArrayGeometry.linear(M, 0.032), torch.as_tensor(steer_for(M, 256), device=dev)
+    x = torch.as_tensor(scene(B, M, S, seed=2)[0], device=dev)
+    # pallas (K1)
+    y, n = path(f"enhance_process pallas, 12 mics (B={B})",
+                lambda: enhance_process(x, geom, look_deg, bench_cfg, backend="pallas"), "fused_mvdr_scan", ("mcra_run",))
+    check(bool(torch.isfinite(y).all()), f"enhance_process pallas, 12 mics: finite {tuple(y.shape)}")
+    ins = k1_inputs(x, bench_cfg)
+    args = k1_args(*ins, steer)
+    got = cm.fused_mvdr_scan(*args)
+    want, plain_ms = timed_once(cm.fused_mvdr_scan_plain, *args)
+    rel, mx = y_rel(got, want)
+    check(rel < K1_GATE, f"fused_mvdr_scan M=12 on its path's input (B={B}, {seconds} s) vs plain: rel {rel:.3e} "
+                         f"(max abs {mx:.3e}) < {K1_GATE:g}")
+    b_ms, by = k1_bound("fused_mvdr_scan [M=12]", ins[0], ins[1], steer, True)
+    T = ins[0].shape[0]
+    print(f"chain floor fused_mvdr_scan [M=12]: {k1_chain_ms(T, M, True):.4f} ms (T={T} x {k1_chain_ops(M, True):g}) "
+          f"{tag}", flush=True)
+    record("fused_mvdr_scan [M=12]", "mvdr.cu", "pallas_mvdr.py:373", n, mx, timed_ms(cm.fused_mvdr_scan, *args),
+           plain_ms, b_ms, by)
+    del ins, args, got, want
+
+    # fused (K2) and mega (K4) at 12 mics, and mega at n_fft 768, 1280, 2048
+    # with 8: the path's own output against the plain version with the
+    # benched config (< 2e-2, where a guard decision can flip), and the
+    # kernel against it again with the guard off (< 1e-3)
+    for nfft, Ms, backend, kname in ((256, 12, "fused", "fused_enhance"), (256, 12, "mega", "fused_enhance_full"),
+                                     (768, 8, "mega", "fused_enhance_full"), (1280, 8, "mega", "fused_enhance_full"),
+                                     (2048, 8, "mega", "fused_enhance_full")):
+        cfg, c_nog = enh_cfg(nfft), enh_cfg(nfft, guard=False)
+        gm = ArrayGeometry.linear(Ms, 0.032)
+        xm = x if Ms == M else torch.as_tensor(scene(B, Ms, S, seed=2)[0], device=dev)
+        st_ = torch.as_tensor(steer_for(Ms, nfft), device=dev)
+        label = f" [M={Ms}]" if nfft == 256 else f" [n_fft={nfft}, M={Ms}]"
+        y, n = path(f"enhance_process {backend}{label} (B={B})",
+                    lambda: enhance_process(xm, gm, look_deg, cfg, backend=backend, inv_mode="rank1"), kname)
+        check(bool(torch.isfinite(y).all()), f"enhance_process {backend}{label}: finite {tuple(y.shape)}")
+        tc = ce._pick_t_chunk(S // cfg.stft.hop) or 64
+        xt, planes, _ = ce._prepare(xm, st_, cfg, tc, "rank1")
+        Z = ce._analysis_planes(xt, cfg.stft)
+        Sf = ce._smoothed_power(Z, cfg.mvdr.mcra.b).contiguous()
+        if kname == "fused_enhance":
+            run = lambda c: ce.enhance_lanes(Z, Sf, planes, c, tc, "rank1")
+            plain = lambda c: ce.enhance_lanes_plain(Z, Sf, planes, c, tc, "rank1")
+            got = run(cfg)
+        else:
+            run = lambda c: ce.fused_enhance_full(xm, st_, c, tc, "rank1")
+            plain = lambda c: ce.fused_enhance_plain(xm, st_, c, tc, "rank1")
+            got = y
+        want, plain_ms = timed_once(plain, cfg)
+        rel, mx = rel_err(got, want)
+        check(rel < FLIP, f"{kname}{label} on its path's input (B={B}, {seconds} s, benched) vs plain: rel {rel:.3e} "
+                          f"(max abs {mx:.3e}) < {FLIP:g}")
+        got_n, want_n = run(c_nog), plain(c_nog)
+        torch.cuda.synchronize()
+        rel_n, mx_n = rel_err(got_n, want_n)
+        check(bool(torch.isfinite(got_n).all()) and rel_n < TIGHT,
+              f"{kname}{label} on its path's input (B={B}, {seconds} s, guard off) vs plain: rel {rel_n:.3e} "
+              f"(max abs {mx_n:.3e}) < {TIGHT:g}")
+        b_full, by_full, b_lanes, by_lanes = enhance_bounds(xm, cfg, tc, Z, Sf, planes, label)
+        b_ms, by = (b_lanes, by_lanes) if kname == "fused_enhance" else (b_full, by_full)
+        record(kname + label, "enhance.cu", "pallas_enhance.py:" + ("123" if kname == "fused_enhance" else "391"), n,
+               mx, timed_ms(run, cfg), plain_ms, b_ms, by)
+        del Z, Sf, xt, got, want, got_n, want_n
+
+    # the TDGSC (K5) and the FDGSC (K8) at 12 mics
+    B = 128
+    xs = torch.as_tensor(scene(B, M, S, seed=4)[0], device=dev)
+    c5 = TdGscConfig(n_mics=M)
+    (out, p, _), n = path(f"tdgsc_process fused [M=12] (B={B})", lambda: tdgsc_process(xs, geom, look, c5, backend="fused"),
+                          "fused_tdgsc")
+    ins = k5_inputs(xs, c5, geom)
+    (want, _), plain_ms = timed_once(cf.tdgsc_frames_plain, *ins, c5)
+    rel, mx = rel_err(out, want)
+    check(bool(torch.isfinite(out).all()) and rel < TIGHT,
+          f"fused_tdgsc [M=12] on its path (B={B}, {seconds} s) vs plain: rel {rel:.3e} (max abs {mx:.3e}) < {TIGHT:g}")
+    T, Lf = S // c5.frame_len, c5.frame_len
+    N = 2 * Lf
+    fft_ops = 2.5 * N * np.log2(N) + N
+    nbytes = 4 * (sum(a.numel() for a in ins if a is not None) + out.numel() + p.numel())
+    b_ms, by = bound(nbytes, B * T * (5 * (M - 1) + 2) * fft_ops + B * T * k5_frame_ops(c5))
+    print(f"bound fused_tdgsc [M=12]: {b_ms:.4f} ms by {by}", flush=True)
+    record("fused_tdgsc [M=12]", "flms.cu", "pallas_flms.py:164", n, mx, timed_ms(cf.tdgsc_frames, *ins, c5), plain_ms,
+           b_ms, by)
+
+    c8 = FdGscConfig(n_mics=M)
+    (o, p, bm), n = path(f"fdgsc_process fused [M=12] (B={B})", lambda: fdgsc_process(xs, geom, look, c8, backend="fused"),
+                         "fused_fdgsc")
+    ins = k8_inputs(xs, c8, geom)
+    (wo, wp, wb), plain_ms = timed_once(cf.fdgsc_frames_plain, *ins, c8)
+    tol = gate_flips(f"fused_fdgsc [M=12] (B={B}, {seconds} s)", pin_flips(p, wp), wp.shape[0] * wp.shape[1],
+                     "low-bin pinning decisions")
+    rel, mx = rel_err(o, wo)
+    check(bool(torch.isfinite(o).all()) and rel < tol,
+          f"fused_fdgsc [M=12] on its path (B={B}, {seconds} s) vs plain: rel {rel:.3e} (max abs {mx:.3e}) < {tol:g}")
+    c1 = tuple(a[:1].double().cpu() for a in ins)
+    k8_ops = frame_ops(lambda n_: cf.fdgsc_frames_plain(c1[0][:, : n_ * Lf], c1[1][..., : n_ * Lf],
+                                                        c1[2][:, : n_ * Lf], c1[3][:, :n_], c8), 3)
+    nbytes = 4 * (sum(a.numel() for a in ins) + o.numel() + p.numel() + bm.numel())
+    b_ms, by = bound(nbytes, B * T * (3 + 7 * M) * fft_ops + B * T * k8_ops)
+    print(f"bound fused_fdgsc [M=12]: {b_ms:.4f} ms by {by}", flush=True)
+    record("fused_fdgsc [M=12]", "fdgsc.cu", "pallas_flms.py:415", n, mx, timed_ms(cf.fdgsc_frames, *ins, c8), plain_ms,
+           b_ms, by)
+    del xs, ins
+
+    # SRP-PHAT (K10) at 12 mics
+    B = 8
+    xd = torch.as_tensor(doa_scene(B, M, S, seed=13), device=dev)
+    (spec, _), n = path("srp_process fused [M=12]", lambda: srp_process(xd, geom, scfg, backend="fused"),
+                        "fused_srp_spectrum", ("mcra_run",))
+    y2, G = srp_rows(xd, geom, scfg)
+    got = cr.srp_spectrum(y2, G)
+    want, plain_ms = timed_once(cr.srp_spectrum_plain, y2, G)
+    rel, mx = rel_err(got, want)
+    check(bool(torch.isfinite(spec).all()) and rel < SRP_GATE,
+          f"fused_srp_spectrum [M=12] on its path (B={B}, {seconds} s) vs plain: rel {rel:.3e} (max abs {mx:.3e}) "
+          f"< {SRP_GATE:g}")
+    R, F, _ = y2.shape
+    Theta = G.shape[-1] // 2
+    b_ms, by = bound(4 * (y2.numel() + G.numel() + R * Theta), R * F * Theta * (8 * M + 5))
+    print(f"bound fused_srp_spectrum [M=12]: {b_ms:.4f} ms by {by}", flush=True)
+    # the library call: the einsum path on the same whitened spectrum, as phase 13's
+    Yd = torch.movedim(torch.movedim(analysis(xd, scfg.stft), -3, -1), -3, 0)
+    lib_ms = timed_ms(srp_angle_spectrum, cr.phat_whiten(Yd), torch.as_tensor(srp_steering_grid(scfg, geom), device=dev),
+                      False)
+    record("fused_srp_spectrum [M=12]", "srp.cu", "pallas_srp.py:29", n, mx, timed_ms(cr.srp_spectrum, y2, G), plain_ms,
+           b_ms, by, lib_ms)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return recs
+
+
 # The JAX package's on-device parity rows (benchmarks/pipelines.py:214-266,
 # PIPELINES_r05.json): row -> (mics, its JAX gate_rel, the JAX harness's own
 # tolerance, the gate the port is held to).  A row is held to its JAX bar
@@ -1529,7 +1955,7 @@ GATE_ROWS = {
 
 
 def smoke_gate_rel(dev, card: str) -> None:
-    """Phase 14: the JAX package's on-device parity protocol
+    """Phase 15: the JAX package's on-device parity protocol
     (benchmarks/pipelines.py's gates) on the port, every row: B=2
     utterances of standard normal noise (the first draw of seed 1, 16384
     samples a mic), the fused path against the float32 ``scan`` path on the
@@ -1538,8 +1964,10 @@ def smoke_gate_rel(dev, card: str) -> None:
     row also prints its fused path's plain version (the same entry point on a
     CPU copy of the input) against the scan and against the kernel path, so
     that a gap splits into the algorithm's float32 rounding and the
-    kernel's; ``full_stack_fused`` prints its stages; ``kws_fused`` also runs
-    with csrc/kws.cu built without fused multiply-adds."""
+    kernel's; ``full_stack_fused`` prints its stages; ``kws_fused``, whose
+    input is shorter than its tap FIFO, says so and runs again with the
+    defer cut so that the FIFO wraps (held to the tight gate), and with
+    csrc/kws.cu built without fused multiply-adds."""
     import torch
 
     from distantspeech_tpu_torch.adaptive.aec import aec_init, aec_step
@@ -1624,6 +2052,22 @@ def smoke_gate_rel(dev, card: str) -> None:
           f"{rel_err(enh_alone, ref[0])[0]:.3e}; K7's transfer decisions: {int((ug != uw).sum())} of {uw.numel()} "
           f"differ from its plain version's", flush=True)
 
+    # kws_fused's row guards the pass-through only: the protocol input is
+    # shorter than the FIFO, so the cleaner's deferred taps are all zero.
+    # Its companion runs the same input with the defer cut so that the
+    # FIFO wraps, held to the tight gate.
+    kcfg = DualMicKwsConfig()
+    T2 = Sg // kcfg.frame_len
+    print(f"gate_rel kws_fused: T={T2} frames < the FIFO's Dn={kcfg.delay_frames_n} slots, so its "
+          f"{gaps['kws_fused']:.3e} guards only the pass-through (the cleaner's taps are all zero)", flush=True)
+    short = DualMicKwsConfig(defer_seconds=0.5)
+    check(short.delay_frames_n < T2, f"kws_fused companion: Dn={short.delay_frames_n} < T={T2} (the FIFO wraps)")
+    got, ref = cf.fused_kws(draws[2], short), kws_process(draws[2], short, dev)
+    torch.cuda.synchronize()
+    r_short = rel_err(got, ref)[0]
+    check(r_short < TIGHT, f"gate_rel kws_fused with defer_seconds={short.defer_seconds} (Dn={short.delay_frames_n}, "
+                           f"the FIFO wraps), against the float32 scan on the card: {r_short:.3e} < {TIGHT:g}")
+
     # kws_fused with csrc/kws.cu built without fused multiply-adds (as K1's
     # and K9's sources are), against the same scan
     lib = _build.BUILD_DIR / "kws-nofmad.so"
@@ -1642,7 +2086,7 @@ def smoke_gate_rel(dev, card: str) -> None:
         M, bar, tol, gate = GATE_ROWS[name]
         check(np.isfinite(r) and r <= gate if gate == 0.0 else np.isfinite(r) and r < gate,
               f"gate_rel {name}: {r:.3e} within {gate:g} ({'its JAX bar' if gate == bar else 'the JAX harness tolerance'})")
-    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -65,7 +65,7 @@ __host__ __device__ __forceinline__ int slot_floats(int M, int Lf) {
 }
 
 // Shared memory in floats; the kernel carves it in this order.
-size_t smem_floats(int M, int Lf) {
+__host__ __device__ size_t smem_floats(int M, int Lf) {
   const size_t N = 2 * Lf, F = Lf + 1, hop = Lf;
   const size_t H = (M + 1) / 2;  // mic pairs
   const size_t nseq = (1 + H) + (H + 1) + M + H + 1;
@@ -76,23 +76,31 @@ size_t smem_floats(int M, int Lf) {
 // fbf, daic [B, T*Lf] (the FBF, and the FBF delayed by Lf), dbm [B, M, T*Lf]
 // (the aligned mics delayed by Lf/2), yp [B, T, F] (reference-channel
 // power), tabs [N/2 twiddles as (cos, sin) | N/2 CCAF upper bounds]
-// -> out [B, T*Lf], p [B, T, F], bm [B, M, T*Lf]
-template <int M>
+// -> out [B, T*Lf], p [B, T, F], bm [B, M, T*Lf].  MT = M, a compile-time
+// constant from 2 to 8; or MT = 0 above that, M = m_run at run time, the
+// per-bin loops over mics in pairs, and the block's buffers in the global
+// scratch work (round4z(smem_floats(M, Lf)) floats a block, plain copies for
+// the prefetch) where they do not fit in shared memory (work null).
+template <int MT>
 __global__ void __launch_bounds__(kFrameThreads, 1) fdgsc_kernel(const float* __restrict__ fbf, const float* __restrict__ dbm,
                                                               const float* __restrict__ daic, const float* __restrict__ yp,
                                                               const float* __restrict__ tabs, float* __restrict__ out,
                                                               float* __restrict__ pout, float* __restrict__ bmo, int T,
-                                                              int Lf, int logN, FdgscParams prm) {
+                                                              int Lf, int logN, FdgscParams prm, int m_run, float* work) {
   extern __shared__ float4 smem4[];
-  constexpr int H = (M + 1) / 2;  // mic pairs; an odd M's last pair has an empty second half
-  constexpr int nA = 1 + H;       // the FBF analysis (with zero), then the BM tap spectra in pairs
-  constexpr int nY = H + 1;       // BM output pairs; BM gradient pairs + the AIC output; AIC gradient pairs
+  constexpr int HT = (MT + 1) / 2;
+  const int M = MT > 0 ? MT : m_run;
+  const bool in_global = MT == 0 && work != nullptr;
+  const int H = (M + 1) / 2;  // mic pairs; an odd M's last pair has an empty second half
+  const int nA = 1 + H;       // the FBF analysis (with zero), then the BM tap spectra in pairs
+  const int nY = H + 1;       // BM output pairs; BM gradient pairs + the AIC output; AIC gradient pairs
   const int N = 2 * Lf, hop = Lf, F = Lf + 1;
   const int tid = threadIdx.x;
   const size_t S = (size_t)T * hop;
   const int slot = slot_floats(M, Lf);
   const int o_m = round4(hop), o_a = o_m + round4(M * hop), o_y = o_a + round4(hop);
-  float* ring = reinterpret_cast<float*>(smem4);            // [2][slot] this and the next frame's inputs
+  float* ring = in_global ? work + blockIdx.x * round4z(smem_floats(M, Lf))
+                          : reinterpret_cast<float*>(smem4);  // [2][slot] this and the next frame's inputs
   float2* bA = reinterpret_cast<float2*>(ring + 2 * slot);  // [nA][N] X, W_0 + i W_1, W_2 + i W_3, ...
   float2* bY = bA + nA * N;                                // [nY][N] inverses
   float2* bP = bY + nY * N;                                // [M][N] E_bm + i AIC input, per mic
@@ -118,6 +126,13 @@ __global__ void __launch_bounds__(kFrameThreads, 1) fdgsc_kernel(const float* __
   // the next frame's inputs into ring slot t & 1
   auto prefetch = [&](int t) {
     float* sl = ring + (t & 1) * slot;
+    if (in_global) {  // no cp.async into global memory: plain copies, seen after the next barrier
+      copy_floats(sl, fb + (size_t)t * hop, hop);
+      for (int m = 0; m < M; ++m) copy_floats(sl + o_m + m * hop, db + m * S + (size_t)t * hop, hop);
+      copy_floats(sl + o_a, ab + (size_t)t * hop, hop);
+      copy_floats(sl + o_y, yp + ((size_t)b * T + t) * F, F);
+      return;
+    }
     prefetch_floats(sl, fb + (size_t)t * hop, hop);
     for (int m = 0; m < M; ++m) prefetch_floats(sl + o_m + m * hop, db + m * S + (size_t)t * hop, hop);
     prefetch_floats(sl + o_a, ab + (size_t)t * hop, hop);
@@ -211,23 +226,41 @@ __global__ void __launch_bounds__(kFrameThreads, 1) fdgsc_kernel(const float* __
     for (int k = tid; k < F; k += kFrameThreads) {
       const float2 X = bA[swz(k, logN)];
       const float P = Pbm[k];
-      float2 Y = make_float2(0.f, 0.f), g[2 * H], Wa[2 * H];
+      float2 Y = make_float2(0.f, 0.f);
       float pw = 0.f;
-      g[2 * H - 1] = make_float2(0.f, 0.f);  // an odd M's empty half
+      if constexpr (MT > 0) {
+        float2 g[2 * HT], Wa[2 * HT];
+        g[2 * H - 1] = make_float2(0.f, 0.f);  // an odd M's empty half
 #pragma unroll
-      for (int q = 0; q < H; ++q) split_pair(bQ + q * N, k, N, logN, Wa[2 * q], Wa[2 * q + 1]);
+        for (int q = 0; q < H; ++q) split_pair(bQ + q * N, k, N, logN, Wa[2 * q], Wa[2 * q + 1]);
 #pragma unroll
-      for (int m = 0; m < M; ++m) {
-        float2 Eb, Za;
-        split_pair(bP + m * N, k, N, logN, Eb, Za);
-        g[m] = grad_bin(X, Eb, P);
-        const float2 y = cmulf(Za, Wa[m]);
-        Y = make_float2(Y.x + y.x, Y.y + y.y);
-        pw = pw + (Za.x * Za.x + Za.y * Za.y);
+        for (int m = 0; m < M; ++m) {
+          float2 Eb, Za;
+          split_pair(bP + m * N, k, N, logN, Eb, Za);
+          g[m] = grad_bin(X, Eb, P);
+          const float2 y = cmulf(Za, Wa[m]);
+          Y = make_float2(Y.x + y.x, Y.y + y.y);
+          pw = pw + (Za.x * Za.x + Za.y * Za.y);
+        }
+#pragma unroll
+        for (int q = 0; q < H; ++q) put_pair(bY + q * N, k, N, logN, g[2 * q], g[2 * q + 1]);
+      } else {
+        for (int q = 0; q < H; ++q) {  // mics 2q and 2q + 1, in the same order
+          float2 g[2], Wa[2];
+          g[1] = make_float2(0.f, 0.f);
+          split_pair(bQ + q * N, k, N, logN, Wa[0], Wa[1]);
+          for (int h = 0; h < 2 && 2 * q + h < M; ++h) {
+            float2 Eb, Za;
+            split_pair(bP + (2 * q + h) * N, k, N, logN, Eb, Za);
+            g[h] = grad_bin(X, Eb, P);
+            const float2 y = cmulf(Za, Wa[h]);
+            Y = make_float2(Y.x + y.x, Y.y + y.y);
+            pw = pw + (Za.x * Za.x + Za.y * Za.y);
+          }
+          put_pair(bY + q * N, k, N, logN, g[0], g[1]);
+        }
       }
       Paic[k] = fmaxf(prm.aic_alpha * Paic[k] + prm.aic_one_m_alpha * pw, 1e-4f);
-#pragma unroll
-      for (int q = 0; q < H; ++q) put_pair(bY + q * N, k, N, logN, g[2 * q], g[2 * q + 1]);
       put_pair(bY + H * N, k, N, logN, Y, make_float2(0.f, 0.f));
     }
     __syncthreads();  // 7
@@ -255,20 +288,36 @@ __global__ void __launch_bounds__(kFrameThreads, 1) fdgsc_kernel(const float* __
     for (int k = tid; k < F; k += kFrameThreads) {
       const float2 E = bE[swz(k, logN)];
       const float P = Paic[k];
-      float2 g[2 * H], Wa[2 * H];
-      g[2 * H - 1] = make_float2(0.f, 0.f);  // an odd M's empty half
+      if constexpr (MT > 0) {
+        float2 g[2 * HT], Wa[2 * HT];
+        g[2 * H - 1] = make_float2(0.f, 0.f);  // an odd M's empty half
 #pragma unroll
-      for (int q = 0; q < H; ++q) split_pair(bQ + q * N, k, N, logN, Wa[2 * q], Wa[2 * q + 1]);
+        for (int q = 0; q < H; ++q) split_pair(bQ + q * N, k, N, logN, Wa[2 * q], Wa[2 * q + 1]);
 #pragma unroll
-      for (int m = 0; m < M; ++m) {
-        float2 Eb, Za;
-        split_pair(bP + m * N, k, N, logN, Eb, Za);
-        g[m] = grad_bin(Za, E, P);
-        const float nr = Wa[m].x + step * g[m].x, ni = Wa[m].y + step * g[m].y;
-        nrm[0] += nr * nr + ni * ni;
+        for (int m = 0; m < M; ++m) {
+          float2 Eb, Za;
+          split_pair(bP + m * N, k, N, logN, Eb, Za);
+          g[m] = grad_bin(Za, E, P);
+          const float nr = Wa[m].x + step * g[m].x, ni = Wa[m].y + step * g[m].y;
+          nrm[0] += nr * nr + ni * ni;
+        }
+#pragma unroll
+        for (int q = 0; q < H; ++q) put_pair(bY + q * N, k, N, logN, g[2 * q], g[2 * q + 1]);
+      } else {
+        for (int q = 0; q < H; ++q) {
+          float2 g[2], Wa[2];
+          g[1] = make_float2(0.f, 0.f);
+          split_pair(bQ + q * N, k, N, logN, Wa[0], Wa[1]);
+          for (int h = 0; h < 2 && 2 * q + h < M; ++h) {
+            float2 Eb, Za;
+            split_pair(bP + (2 * q + h) * N, k, N, logN, Eb, Za);
+            g[h] = grad_bin(Za, E, P);
+            const float nr = Wa[h].x + step * g[h].x, ni = Wa[h].y + step * g[h].y;
+            nrm[0] += nr * nr + ni * ni;
+          }
+          put_pair(bY + q * N, k, N, logN, g[0], g[1]);
+        }
       }
-#pragma unroll
-      for (int q = 0; q < H; ++q) put_pair(bY + q * N, k, N, logN, g[2 * q], g[2 * q + 1]);
     }
     warp_partials<1>(nrm, red + 3 * kFrameWarps);
     __syncthreads();  // 11
@@ -294,7 +343,23 @@ cudaError_t launch(const float* fbf, const float* dbm, const float* daic, const 
   const size_t smem = sizeof(float) * smem_floats(M, Lf);
   const cudaError_t e = allow_smem(fdgsc_kernel<M>, smem);
   if (e != cudaSuccess) return e;
-  fdgsc_kernel<M><<<B, kFrameThreads, smem, st>>>(fbf, dbm, daic, yp, tabs, out, p, bm, T, Lf, logN, prm);
+  fdgsc_kernel<M><<<B, kFrameThreads, smem, st>>>(fbf, dbm, daic, yp, tabs, out, p, bm, T, Lf, logN, prm, M, nullptr);
+  return cudaGetLastError();
+}
+
+bool fits_smem(int M, int Lf) { return sizeof(float) * smem_floats(M, Lf) <= kMaxSmem; }
+
+// M > 8: fdgsc_kernel<0>, in shared memory where it fits, else in scratch.
+cudaError_t launch_any(const float* fbf, const float* dbm, const float* daic, const float* yp, const float* tabs,
+                       float* out, float* p, float* bm, float* scratch, int M, int B, int T, int Lf, int logN,
+                       const FdgscParams& prm, cudaStream_t st) {
+  const bool smem_ok = fits_smem(M, Lf);
+  if (!smem_ok && scratch == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = smem_ok ? sizeof(float) * smem_floats(M, Lf) : 0;
+  const cudaError_t e = allow_smem(fdgsc_kernel<0>, smem);
+  if (e != cudaSuccess) return e;
+  fdgsc_kernel<0><<<B, kFrameThreads, smem, st>>>(fbf, dbm, daic, yp, tabs, out, p, bm, T, Lf, logN, prm, M,
+                                                   smem_ok ? nullptr : scratch);
   return cudaGetLastError();
 }
 
@@ -302,10 +367,20 @@ cudaError_t launch(const float* fbf, const float* dbm, const float* daic, const 
 
 extern "C" {
 
-// M (mics) 2 to 8; Lf a power of two >= 128 (the p pinning reads bins 32..127).
+// Floats of global scratch the launch needs at M mics (0 where the block's
+// buffers fit in shared memory, always up to M = 8), -1 for a shape the
+// launcher does not take.
+long long fused_fdgsc_scratch_floats(int M, int B, int Lf) {
+  if (M < 2 || log2_of_twice(Lf) < 0 || Lf < 128) return -1;
+  return M <= 8 || fits_smem(M, Lf) ? 0 : (long long)B * round4z(smem_floats(M, Lf));
+}
+
+// M (mics) 2 or more; Lf a power of two >= 128 (the p pinning reads bins
+// 32..127).  Above 8 mics the kernel takes M at run time, its buffers in
+// scratch where they do not fit in shared memory (fused_fdgsc_scratch_floats).
 cudaError_t fused_fdgsc_launch(const void* fbf, const void* dbm, const void* daic, const void* yp, const void* tabs,
-                               void* out, void* p, void* bm, int M, int B, int T, int Lf, const void* params,
-                               void* stream) {
+                               void* out, void* p, void* bm, void* scratch, int M, int B, int T, int Lf,
+                               const void* params, void* stream) {
   const int logN = log2_of_twice(Lf);
   if (logN < 0 || Lf < 128 || B < 1 || T < 1) return cudaErrorInvalidValue;
   const FdgscParams prm = *static_cast<const FdgscParams*>(params);
@@ -326,7 +401,9 @@ cudaError_t fused_fdgsc_launch(const void* fbf, const void* dbm, const void* dai
     case 6: return launch<6>(ff, df, af, yf, tf, of, pf, bf, B, T, Lf, logN, prm, st);
     case 7: return launch<7>(ff, df, af, yf, tf, of, pf, bf, B, T, Lf, logN, prm, st);
     case 8: return launch<8>(ff, df, af, yf, tf, of, pf, bf, B, T, Lf, logN, prm, st);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (M < 2) return cudaErrorInvalidValue;
+      return launch_any(ff, df, af, yf, tf, of, pf, bf, static_cast<float*>(scratch), M, B, T, Lf, logN, prm, st);
   }
 }
 

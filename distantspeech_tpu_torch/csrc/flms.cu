@@ -67,7 +67,7 @@ __host__ __device__ __forceinline__ int slot_floats(int C, int Lf, bool pf) {
 }
 
 // Shared memory in floats; the kernel carves it in this order.
-size_t smem_floats(int C, int Lf, bool pf) {
+__host__ __device__ size_t smem_floats(int C, int Lf, bool pf) {
   const size_t N = 2 * Lf, F = Lf + 1, hop = Lf;
   const size_t nG = (C + (pf ? 1 : 0) + 1) / 2;  // the pairs of Gb
   size_t n = 2 * (size_t)slot_floats(C, Lf, pf) + (C + nG + 1) * N * 2 + N + C * Lf + 7 * F + 3 * kFrameWarps;
@@ -76,27 +76,35 @@ size_t smem_floats(int C, int Lf, bool pf) {
 }
 
 // bm [B, C, T*Lf], d [B, T*Lf], yp [B, T, F], up [B, C, T, F] (kPF),
-// tabs [N/2 twiddles as (cos, sin) | N window] -> out [B, T*Lf], p [B, T, F]
-template <int C, bool kPF>
+// tabs [N/2 twiddles as (cos, sin) | N window] -> out [B, T*Lf], p [B, T, F].
+// CT = C, a compile-time constant from 1 to 7; or CT = 0 above that, C =
+// c_run at run time, the per-bin loops over channels in pairs, and the
+// block's buffers in the global scratch work (round4z(smem_floats(C, Lf,
+// kPF)) floats a block, plain copies for the prefetch) where they do not fit
+// in shared memory (work null).
+template <int CT, bool kPF>
 __global__ void __launch_bounds__(kFrameThreads, 1) tdgsc_kernel(const float* __restrict__ bm, const float* __restrict__ d,
                                                               const float* __restrict__ yp, const float* __restrict__ up,
                                                               const float* __restrict__ tabs, float* __restrict__ out,
                                                               float* __restrict__ pout, int T, int Lf, int logN,
-                                                              TdgscParams prm) {
-  static_assert(C >= 1 && C <= 7, "built for C = M - 1 = 1 .. 7");
+                                                              TdgscParams prm, int c_run, float* work) {
+  static_assert(CT >= 0 && CT <= 7, "built for C = M - 1 = 1 .. 7, or 0: C at run time");
   extern __shared__ float4 smem4[];
+  const int C = CT > 0 ? CT : c_run;
+  const bool in_global = CT == 0 && work != nullptr;
   // nQ gradient pairs (an even C's last pair with an empty second half),
   // then constrained-gradient and update pairs; nG with the postfiltered
   // beam, the second signal of pair C / 2 (with gradient C - 1 for an odd
   // C, alone in a pair of its own for an even one)
-  constexpr int nQ = (C + 1) / 2;
-  constexpr int nG = (C + (kPF ? 1 : 0) + 1) / 2;
+  const int nQ = (C + 1) / 2;
+  const int nG = (C + (kPF ? 1 : 0) + 1) / 2;
   const int N = 2 * Lf, hop = Lf, F = Lf + 1;
   const int tid = threadIdx.x;
   const size_t S = (size_t)T * hop;
   const int slot = slot_floats(C, Lf, kPF);
   const int o_d = round4(C * hop), o_y = o_d + round4(hop), o_u = o_y + round4(F);
-  float* ring = reinterpret_cast<float*>(smem4);       // [2][slot] this and the next frame's inputs
+  float* ring = in_global ? work + blockIdx.x * round4z(smem_floats(C, Lf, kPF))
+                          : reinterpret_cast<float*>(smem4);  // [2][slot] this and the next frame's inputs
   float2* Z = reinterpret_cast<float2*>(ring + 2 * slot);  // [C][N] x_c + i w_c; then the nQ constrained pairs
   float2* Gb = Z + C * N;                             // [nG][N] output inverse (Gb[0]); gradient, then update pairs
   float2* E2 = Gb + nG * N;                           // [N] error + i postfilter analysis
@@ -126,6 +134,14 @@ __global__ void __launch_bounds__(kFrameThreads, 1) tdgsc_kernel(const float* __
   // the next frame's inputs into ring slot t & 1
   auto prefetch = [&](int t) {
     float* sl = ring + (t & 1) * slot;
+    if (in_global) {  // no cp.async into global memory: plain copies, seen after the next barrier
+      for (int c = 0; c < C; ++c) copy_floats(sl + c * hop, bmb + c * S + (size_t)t * hop, hop);
+      copy_floats(sl + o_d, db + (size_t)t * hop, hop);
+      copy_floats(sl + o_y, yp + ((size_t)blockIdx.x * T + t) * F, F);
+      if (kPF)
+        for (int c = 0; c < C; ++c) copy_floats(sl + o_u + c * F, up + (((size_t)blockIdx.x * C + c) * T + t) * F, F);
+      return;
+    }
     for (int c = 0; c < C; ++c) prefetch_floats(sl + c * hop, bmb + c * S + (size_t)t * hop, hop);
     prefetch_floats(sl + o_d, db + (size_t)t * hop, hop);
     prefetch_floats(sl + o_y, yp + ((size_t)blockIdx.x * T + t) * F, F);
@@ -226,18 +242,34 @@ __global__ void __launch_bounds__(kFrameThreads, 1) tdgsc_kernel(const float* __
       float2 E, Y;
       split_pair(E2, k, N, logN, E, Y);
       const float P = Pw[k];
-      float2 gr[2 * nG];
+      if constexpr (CT > 0) {
+        float2 gr[2 * ((CT + (kPF ? 1 : 0) + 1) / 2)];
 #pragma unroll
-      for (int c = 0; c < 2 * nG; ++c) {
-        gr[c] = make_float2(0.f, 0.f);
-        if (c < C) {
-          float2 X, W;
-          split_pair(Z + c * N, k, N, logN, X, W);
-          gr[c] = grad_bin(X, E, P);
+        for (int c = 0; c < 2 * nG; ++c) {
+          gr[c] = make_float2(0.f, 0.f);
+          if (c < C) {
+            float2 X, W;
+            split_pair(Z + c * N, k, N, logN, X, W);
+            gr[c] = grad_bin(X, E, P);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < nG; ++q) put_pair(Gb + q * N, k, N, logN, gr[2 * q], gr[2 * q + 1]);
+      } else {
+        for (int q = 0; q < nG; ++q) {
+          float2 g2[2];
+          for (int h = 0; h < 2; ++h) {
+            const int c = 2 * q + h;
+            g2[h] = make_float2(0.f, 0.f);
+            if (c < C) {
+              float2 X, W;
+              split_pair(Z + c * N, k, N, logN, X, W);
+              g2[h] = grad_bin(X, E, P);
+            }
+          }
+          put_pair(Gb + q * N, k, N, logN, g2[0], g2[1]);
         }
       }
-#pragma unroll
-      for (int q = 0; q < nG; ++q) put_pair(Gb + q * N, k, N, logN, gr[2 * q], gr[2 * q + 1]);
       if (kPF) {
         ybr[k] = Y.x;
         ybi[k] = Y.y;
@@ -252,18 +284,22 @@ __global__ void __launch_bounds__(kFrameThreads, 1) tdgsc_kernel(const float* __
       const bool first = t == 0;
       for (int k = tid; k < F; k += kFrameThreads) {
         const BinKind bk = bin_kind(k, F);
-        float mu[1 + C];
+        // mu_m: tracker m's noise PSD, which it also keeps as its Lam (read
+        // back from there where C is not a compile-time constant)
+        float mu[1 + (CT > 0 ? CT : 0)];
+        const float* lam_row = oms + 4 * (1 + C) * F + k;
 #pragma unroll
         for (int m = 0; m <= C; ++m) {
           const float* row = m == 0 ? pw0 : pu + (m - 1) * F;
           const float Sf = prm.ob0 * row[k > 0 ? k - 1 : 0] + prm.ob1 * row[k] + prm.ob2 * row[k < F - 1 ? k + 1 : F - 1];
           McraLane st = load_mcra(oms, (1 + C) * F, m * F + k);
-          float sr;
-          mcra_frame(st, t, row[k], Sf, bk, prm.om, mu[m], sr);
+          float sr, lam;
+          mcra_frame(st, t, row[k], Sf, bk, prm.om, CT > 0 ? mu[m] : lam, sr);
           store_mcra(oms, (1 + C) * F, m * F + k, st);
         }
         const float y = pw0[k];
         const float zy = first ? y : prm.o_alpha_s * zY[k] + prm.o_one_m_alpha_s * smooth_zero(pw0, k, F);
+        const float mu0 = CT > 0 ? mu[0] : lam_row[0];
         zY[k] = zy;
         float ref_max = 0.f;
 #pragma unroll
@@ -271,11 +307,12 @@ __global__ void __launch_bounds__(kFrameThreads, 1) tdgsc_kernel(const float* __
           const float* row = pu + c * F;
           const float zu = first ? row[k] : prm.o_alpha_s * zU[c * F + k] + prm.o_one_m_alpha_s * smooth_zero(row, k, F);
           zU[c * F + k] = zu;
-          ref_max = c == 0 ? zu - mu[1 + c] : fmaxf(ref_max, zu - mu[1 + c]);
+          const float muc = CT > 0 ? mu[1 + c] : lam_row[(1 + c) * F];
+          ref_max = c == 0 ? zu - muc : fmaxf(ref_max, zu - muc);
         }
-        float omega = fmaxf(zy - mu[0], 1e-6f) / (fmaxf(ref_max, prm.o_eps * mu[0]) + 1e-6f);
+        float omega = fmaxf(zy - mu0, 1e-6f) / (fmaxf(ref_max, prm.o_eps * mu0) + 1e-6f);
         omega = fminf(fmaxf(omega, 0.1f), 100.f);
-        const float gamma_s = fminf(y / (mu[0] * prm.o_bmin + 1e-6f), 100.f);
+        const float gamma_s = fminf(y / (mu0 * prm.o_bmin + 1e-6f), 100.f);
         const float q_cand = fmaxf((prm.o_gh - gamma_s) / prm.o_gh_gl, (prm.o_oh - omega) / prm.o_oh_ol);
         const bool absent = gamma_s < prm.o_gl || omega < prm.o_ol;
         const float q = fminf(fmaxf(absent ? 1.f : q_cand, prm.o_qmin), prm.o_qmax);
@@ -359,7 +396,7 @@ cudaError_t launch(const float* bm, const float* d, const float* yp, const float
   const size_t smem = sizeof(float) * smem_floats(C, Lf, kPF);
   const cudaError_t e = allow_smem(tdgsc_kernel<C, kPF>, smem);
   if (e != cudaSuccess) return e;
-  tdgsc_kernel<C, kPF><<<B, kFrameThreads, smem, st>>>(bm, d, yp, up, tabs, out, p, T, Lf, logN, prm);
+  tdgsc_kernel<C, kPF><<<B, kFrameThreads, smem, st>>>(bm, d, yp, up, tabs, out, p, T, Lf, logN, prm, C, nullptr);
   return cudaGetLastError();
 }
 
@@ -370,14 +407,43 @@ cudaError_t launch_c(const float* bm, const float* d, const float* yp, const flo
   return launch<C, false>(bm, d, yp, up, tabs, out, p, B, T, Lf, logN, prm, st);
 }
 
+// Whether the block's buffers at C channels fit in shared memory.
+bool fits_smem(int C, int Lf, bool pf) { return sizeof(float) * smem_floats(C, Lf, pf) <= kMaxSmem; }
+
+// C > 7: tdgsc_kernel<0, kPF>, in shared memory where it fits, else in scratch.
+template <bool kPF>
+cudaError_t launch_any(const float* bm, const float* d, const float* yp, const float* up, const float* tabs,
+                       float* out, float* p, float* scratch, int C, int B, int T, int Lf, int logN,
+                       const TdgscParams& prm, cudaStream_t st) {
+  const bool smem_ok = fits_smem(C, Lf, kPF);
+  if (!smem_ok && scratch == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = smem_ok ? sizeof(float) * smem_floats(C, Lf, kPF) : 0;
+  const cudaError_t e = allow_smem(tdgsc_kernel<0, kPF>, smem);
+  if (e != cudaSuccess) return e;
+  tdgsc_kernel<0, kPF><<<B, kFrameThreads, smem, st>>>(bm, d, yp, up, tabs, out, p, T, Lf, logN, prm, C,
+                                                        smem_ok ? nullptr : scratch);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// C (= M - 1 blocking-matrix channels) 1 to 7; up null: the core kernel,
-// else the postfilter variant.
+// Floats of global scratch the launch needs at C channels (0 where the
+// block's buffers fit in shared memory, always up to C = 7), -1 for a shape
+// the launcher does not take.
+long long fused_tdgsc_scratch_floats(int C, int B, int Lf, int pf) {
+  if (C < 1 || log2_of_twice(Lf) < 0) return -1;
+  return C <= 7 || fits_smem(C, Lf, pf != 0) ? 0 : (long long)B * round4z(smem_floats(C, Lf, pf != 0));
+}
+
+// C (= M - 1 blocking-matrix channels) 1 or more; up null: the core kernel,
+// else the postfilter variant.  Above C = 7 the kernel takes C at run time,
+// its buffers in scratch where they do not fit in shared memory
+// (fused_tdgsc_scratch_floats).
 cudaError_t fused_tdgsc_launch(const void* bm, const void* d, const void* yp, const void* up, const void* tabs,
-                               void* out, void* p, int C, int B, int T, int Lf, const void* params, void* stream) {
+                               void* out, void* p, void* scratch, int C, int B, int T, int Lf, const void* params,
+                               void* stream) {
   const int logN = log2_of_twice(Lf);
   if (logN < 0 || B < 1 || T < 1) return cudaErrorInvalidValue;
   const TdgscParams prm = *static_cast<const TdgscParams*>(params);
@@ -397,7 +463,11 @@ cudaError_t fused_tdgsc_launch(const void* bm, const void* d, const void* yp, co
     case 5: return launch_c<5>(bf, df, yf, uf, tf, of, pf, B, T, Lf, logN, prm, st);
     case 6: return launch_c<6>(bf, df, yf, uf, tf, of, pf, B, T, Lf, logN, prm, st);
     case 7: return launch_c<7>(bf, df, yf, uf, tf, of, pf, B, T, Lf, logN, prm, st);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (C < 1) return cudaErrorInvalidValue;
+      float* sc = static_cast<float*>(scratch);
+      if (uf != nullptr) return launch_any<true>(bf, df, yf, uf, tf, of, pf, sc, C, B, T, Lf, logN, prm, st);
+      return launch_any<false>(bf, df, yf, uf, tf, of, pf, sc, C, B, T, Lf, logN, prm, st);
   }
 }
 

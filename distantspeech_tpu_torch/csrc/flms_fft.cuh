@@ -9,17 +9,17 @@
 // bits XORed with its top four, so that the bit-reversed stores of
 // consecutive bins, 2^(logN-4) points apart, fall in different banks instead
 // of one, at no cost in memory.  It is transformed in place by a group of G
-// warps: the radix-2 decimation-in-time stages of fft_stages
-// (flms_lane.cuh), taken three at a time, so that each pass is one radix-8
+// warps: radix-2 decimation-in-time stages (stage s pairs the points
+// 2^(s-1) apart with the twiddle tw[pos << (logN - s)]), taken three at a
+// time, so that each pass is one radix-8
 // butterfly per thread and point octet (a radix-4 or radix-2 pass closes
 // logN % 3 != 0), its 8 points in registers.  The passes of one sequence are
 // separated by __syncwarp (G = 1) or by a named barrier of the group's warps
 // (bar.sync id, 32 G); no block barrier falls inside a transform.  fft_batch
 // hands the sequences of a batch to the block's warps: G warps a sequence
 // where the batch leaves warps idle and N / 8 butterflies give each thread
-// one.  The arithmetic of each stage is fft_stages' own (the same twiddle
-// table, the exact zeros kept exact), so bins 0 and N/2 of a real signal stay
-// real.
+// one.  The twiddles come from the host with the exact zeros of sin and cos
+// kept exact, so bins 0 and N/2 of a real signal stay real.
 //
 // Real pairs.  Two real signals x and y go through one complex FFT as
 // z = x + i y: split_pair recovers X_k = (Z_k + conj Z_{N-k}) / 2 and
@@ -81,6 +81,21 @@ __device__ __forceinline__ int swz(int p, int logN) { return p ^ ((p >> max(logN
 // n rounded up to a multiple of 4 floats (16 bytes).
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
+// A Hopper block's dynamic shared memory with the opt-in, in bytes.
+constexpr size_t kMaxSmem = 232448;
+
+// n floats rounded up to a multiple of 4 (16 bytes): the stride between the
+// blocks' regions of a global scratch, so that each region's float2 and
+// float4 views stay aligned as in shared memory.
+__host__ __device__ __forceinline__ size_t round4z(size_t n) { return (n + 3) & ~(size_t)3; }
+
+// Copies n floats from src to dst by the block's kFrameThreads threads (the
+// prefetch of a kernel whose buffers lie in global memory, where cp.async
+// cannot write); seen by the block after its next barrier.
+__device__ __forceinline__ void copy_floats(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n; i += kFrameThreads) dst[i] = src[i];
+}
+
 // Issues the copy of n floats from src (global) to dst (shared) by the nthr
 // threads of a group (this one of rank r); each thread's copies land at its
 // copy_async_wait_all.
@@ -103,7 +118,7 @@ struct InPlace {
   __device__ __forceinline__ float2 operator()(const float2* a, int p, int logN) const { return a[swz(p, logN)]; }
 };
 
-// One pass: radix-2 stages s0 .. s0 + K - 1 of fft_stages, each butterfly's
+// One pass: radix-2 stages s0 .. s0 + K - 1, each butterfly's
 // 2^K points (spaced 2^(s0-1) apart) in registers, by thread r of nthr; the
 // points read as load(a, p, logN) (p a bit-reversed position), written to a.
 template <int K, bool kInv, class Load = InPlace>
@@ -210,7 +225,7 @@ __device__ __forceinline__ void split_pair(const float2* Z, int k, int N, int lo
 
 // Bin k (0 <= k <= N/2) of the hermitian half spectra A and B into a
 // bit-reversed full spectrum whose inverse is N (a + i b); bins 0 and N/2
-// drop their imaginary parts, as put_half does (B = 0 is put_half).
+// drop their imaginary parts, as the inverse real DFT does.
 __device__ __forceinline__ void put_pair(float2* z, int k, int N, int logN, float2 A, float2 B) {
   if (k == 0 || k == (N >> 1)) {
     z[swz(bitrev(k, logN), logN)] = make_float2(A.x, B.x);

@@ -18,7 +18,7 @@ from distantspeech_tpu_torch._device import resolve_device
 from distantspeech_tpu_torch.array.geometry import ArrayGeometry
 from distantspeech_tpu_torch.array.steering import steering_vector
 from distantspeech_tpu_torch.noise.mcra import McraConfig, mcra_run
-from distantspeech_tpu_torch.ops.cuda_srp import fused_srp_spectrum, phat_whiten
+from distantspeech_tpu_torch.ops.cuda_srp import fused_srp_spectrum, pack_grid, phat_whiten
 from distantspeech_tpu_torch.transform import StftConfig, analysis
 
 
@@ -43,6 +43,29 @@ def srp_steering_grid(cfg: SrpConfig, geometry: ArrayGeometry) -> np.ndarray:
     return steering_vector(geometry, look, cfg.n_fft)
 
 
+# (config, geometry, device, packed) -> the grid on the device
+_GRIDS: dict = {}
+_GRIDS_KEPT = 16
+
+
+def device_grid(cfg: SrpConfig, geometry: ArrayGeometry, device, packed: bool) -> torch.Tensor:
+    """``srp_steering_grid`` on ``device``, built and copied once per
+    (config, geometry, device): as a complex tensor [Theta, F, M], or
+    packed for K10 (``ops.cuda_srp.pack_grid``, [F, 2M, 2 Theta]).  The
+    same numbers as building it anew."""
+    device = torch.device(device)
+    loc = np.ascontiguousarray(geometry.mic_loc, dtype=np.float64)
+    key = (cfg, loc.shape, loc.tobytes(), geometry.fs, geometry.c, str(device), packed)
+    grid = _GRIDS.get(key)
+    if grid is None:
+        grid_np = srp_steering_grid(cfg, geometry)
+        grid = pack_grid(grid_np, device) if packed else torch.as_tensor(grid_np, device=device)
+        if len(_GRIDS) >= _GRIDS_KEPT:
+            _GRIDS.pop(next(iter(_GRIDS)))
+        _GRIDS[key] = grid
+    return grid
+
+
 def srp_angle_spectrum(Y_tfm: torch.Tensor, grid, phat: bool = True) -> torch.Tensor:
     """Angle spectrum of a spectrogram.  Y_tfm: [T, ..., F, M]; grid:
     [Theta, F, M].  Returns [T, ..., Theta]: sum_f |sum_m a*_theta y_phat|.
@@ -63,15 +86,16 @@ def srp_process(
     backend: 'scan' (the einsum of ``srp_angle_spectrum``, which
     materialises the steered field) or 'fused' (kernel K10,
     ``ops.cuda_srp.fused_srp_spectrum``: per-bin steered power accumulated
-    on chip).  On a CPU tensor 'fused' runs the kernel's plain version."""
+    on chip).  On a CPU tensor 'fused' runs the kernel's plain version.
+    The steering grid is built and copied to the device once per (config,
+    geometry) (``device_grid``)."""
     x = torch.as_tensor(x, device=resolve_device(device))
     X = analysis(x, cfg.stft)  # [..., M, T, F]
     Y = torch.movedim(torch.movedim(X, -3, -1), -3, 0)  # [T, ..., F, M]
-    grid = srp_steering_grid(cfg, geometry)
     if backend == "fused":
-        spec = fused_srp_spectrum(Y, grid, phat=phat)
+        spec = fused_srp_spectrum(Y, None, phat=phat, packed=device_grid(cfg, geometry, Y.device, packed=True))
     elif backend == "scan":
-        spec = srp_angle_spectrum(Y, grid, phat=phat)
+        spec = srp_angle_spectrum(Y, device_grid(cfg, geometry, Y.device, packed=False), phat=phat)
     else:
         raise ValueError(f"backend must be 'scan' or 'fused', got {backend!r}")
     _, p = mcra_run(cfg.mcra, Y[..., 0].abs() ** 2)

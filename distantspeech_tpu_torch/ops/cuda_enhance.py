@@ -73,12 +73,6 @@ LAUNCHES = {"fused_enhance": 0, "fused_enhance_full": 0}
 # inv_mode='rank1': frames of exact per-frame LDL^H before the Bennett
 # handover, rounded up to whole frame chunks
 _RANK1_WARM_FRAMES = 64
-_KERNEL_MICS = range(2, 9)  # the M the CUDA templates are instantiated for: 2 to 8
-# the mega kernel's transform sizes: the powers of two among those of the JAX
-# kernel (multiples of 256) up to what one block holds; the lane states sit
-# in registers at 256 (and at 512 with M <= 4), else in shared memory or a
-# global scratch (csrc/enhance.cu)
-_FULL_NFFT = (256, 512, 1024)
 
 
 def _pick_t_chunk(T: int, cap: int = 64):
@@ -276,12 +270,14 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("enhance")
     if not getattr(lib, "_signatures_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_enhance_launch.argtypes = [p, p, p, p, i, i, i, i, p, p]
+        lib.fused_enhance_launch.argtypes = [p, p, p, p, p, i, i, i, i, p, p]
         lib.fused_enhance_launch.restype = i
+        lib.fused_enhance_scratch_floats.argtypes = [i, i, i]
+        lib.fused_enhance_scratch_floats.restype = ctypes.c_longlong
         lib.fused_enhance_full_launch.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, p, p]
         lib.fused_enhance_full_launch.restype = i
         lib.fused_enhance_full_scratch_floats.argtypes = [i, i]
-        lib.fused_enhance_full_scratch_floats.restype = i
+        lib.fused_enhance_full_scratch_floats.restype = ctypes.c_longlong
         lib._signatures_set = True
     return lib
 
@@ -289,20 +285,25 @@ def _library() -> ctypes.CDLL:
 def enhance_lanes(Z, Sf, steer_planes, cfg, t_chunk: int, inv_mode: str = "ldl") -> torch.Tensor:
     """The ``fused_enhance`` kernel: per-lane recursion over spectra
     Z [T, M, 2, B, F] and Sf [T, B, F] -> gained spectra [T, 2, B, F].
+    Any M >= 2: above 8 mics the lane states live in shared memory, or in a
+    global scratch where they do not fit (M > 27).
     CPU tensors run ``enhance_lanes_plain``."""
     if Z.device.type == "cpu":
         return enhance_lanes_plain(Z, Sf, steer_planes, cfg, t_chunk, inv_mode)
     _build.check_tensors("fused_enhance", Z, Sf, steer_planes)
     T, M, _, B, F = Z.shape
-    if M not in _KERNEL_MICS:
-        raise ValueError(f"fused_enhance: the kernel is built for M from 2 to 8, got M={M}")
+    if M < 2:
+        raise ValueError(f"fused_enhance: the kernel takes M >= 2 mics, got M={M}")
     if Sf.shape != (T, B, F) or steer_planes.shape != (M, 2, F):
         raise ValueError("fused_enhance: Sf must be [T, B, F] and steer_planes [M, 2, F]")
     lib = _library()
     Y = torch.empty((T, 2, B, F), dtype=torch.float32, device=Z.device)
     params = _lane_params(cfg, M, t_chunk, inv_mode)
+    n_scratch = lib.fused_enhance_scratch_floats(M, B, F)  # lane states above 8 mics
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=Z.device) if n_scratch > 0 else None
     err = lib.fused_enhance_launch(
-        Z.data_ptr(), Sf.data_ptr(), steer_planes.data_ptr(), Y.data_ptr(), M, B, F, T,
+        Z.data_ptr(), Sf.data_ptr(), steer_planes.data_ptr(), Y.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, M, B, F, T,
         ctypes.addressof(params), torch.cuda.current_stream(Z.device).cuda_stream,
     )
     _build.check_launch("enhance", err, "fused_enhance")
@@ -334,7 +335,8 @@ def _dft_tables(stft, device) -> torch.Tensor:
 
 def fused_enhance_full(x: torch.Tensor, steer, cfg, t_chunk: int = None, inv_mode: str = "ldl") -> torch.Tensor:
     """The whole flagship pipeline in one kernel: x [B, M, S] -> y [B, T*hop].
-    steer: [F, M] complex.  CPU tensors run ``fused_enhance_plain``."""
+    steer: [F, M] complex; any M >= 2 and any n_fft that is a multiple of
+    256, as the JAX kernel takes.  CPU tensors run ``fused_enhance_plain``."""
     if x.device.type == "cpu":
         return fused_enhance_plain(x, steer, cfg, t_chunk, inv_mode)
     x, planes, tc = _prepare(x, steer, cfg, t_chunk, inv_mode)
@@ -342,10 +344,10 @@ def fused_enhance_full(x: torch.Tensor, steer, cfg, t_chunk: int = None, inv_mod
     _build.check_tensors("fused_enhance_full", x)
     B, M, S = x.shape
     stft = cfg.stft
-    if M not in _KERNEL_MICS or stft.n_fft not in _FULL_NFFT:
-        raise ValueError(f"fused_enhance_full: the kernel takes M from 2 to 8 and n_fft in {_FULL_NFFT}, "
-                         f"got M={M}, n_fft={stft.n_fft}; backend='fused' runs any")
     lib = _library()
+    if lib.fused_enhance_full_scratch_floats(M, stft.n_fft) < 0:
+        raise ValueError(f"fused_enhance_full: the kernel takes M >= 2 and n_fft a multiple of 256, "
+                         f"got M={M}, n_fft={stft.n_fft}; backend='fused' runs any")
     T = S // stft.hop
     y = torch.empty((B, S), dtype=torch.float32, device=x.device)
     tabs = _dft_tables(stft, x.device)

@@ -43,10 +43,9 @@ pinned closed form, and the OM-LSA smoothing is zero-padded.
 
 The plain version computes every transform as a dense product against the
 packed DFT matrices of the JAX kernel (``plain_dft_packed``,
-``windowed_dft_packed``); K5 and K8 compute them as FFTs owned by one warp
-or a warp pair, two real transforms packed into each complex one
-(``csrc/flms_fft.cuh``), K6 as the block-wide radix-2 FFT of
-``csrc/flms_lane.cuh``.  The two round differently; the canceller's
+``windowed_dft_packed``); K5, K6 and K8 compute them as FFTs owned by one
+warp or a warp pair (``csrc/flms_fft.cuh``), K5 and K8 with two real
+transforms packed into each complex one.  The two round differently; the canceller's
 small-step LMS does not compound the gap.  The TPU knobs ``t_chunk``,
 ``sub``, ``unroll`` and ``_stages`` are dropped (the result does not depend
 on them), and any B >= 1 is taken.
@@ -71,8 +70,6 @@ from distantspeech_tpu_torch.ops.fir import fir_filter_offline
 from distantspeech_tpu_torch.transform.stft import StftConfig, _dft_matrices, _idft_matrices, stft_frames
 
 LAUNCHES = {"fused_tdgsc": 0, "fused_kws": 0, "fused_fdgsc": 0}
-_KERNEL_CHANNELS = range(1, 8)  # C = M - 1 the K5 templates are instantiated for: 1 to 7
-_FDGSC_MICS = range(2, 9)  # M the K8 templates are instantiated for: 2 to 8
 FDGSC_MAXNORM = 0.003  # the FDGSC AIC's filter-norm ceiling (aic_step's default)
 
 
@@ -337,10 +334,13 @@ def _tables(n_fft: int, device) -> torch.Tensor:
 
 # csrc/<name>.cu -> its launcher and argument types (p: pointer, i: int)
 _LAUNCHERS = {
-    "flms": ("fused_tdgsc_launch", "pppppppiiiipp"),  # K5
+    "flms": ("fused_tdgsc_launch", "ppppppppiiiipp"),  # K5
     "kws": ("fused_kws_launch", "pppppiiiipp"),  # K6
-    "fdgsc": ("fused_fdgsc_launch", "ppppppppiiiipp"),  # K8
+    "fdgsc": ("fused_fdgsc_launch", "pppppppppiiiipp"),  # K8
 }
+# csrc/<name>.cu -> the function that says how much global scratch a launch
+# needs (floats, -1 for a shape it does not take), and its int arguments
+_SCRATCH = {"flms": ("fused_tdgsc_scratch_floats", 4), "fdgsc": ("fused_fdgsc_scratch_floats", 3)}
 
 
 def _library(name: str = "flms") -> ctypes.CDLL:
@@ -350,14 +350,29 @@ def _library(name: str = "flms") -> ctypes.CDLL:
         fn = getattr(lib, fn_name)
         fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int for c in sig]
         fn.restype = ctypes.c_int
+        if name in _SCRATCH:
+            sc_name, n_int = _SCRATCH[name]
+            sc = getattr(lib, sc_name)
+            sc.argtypes, sc.restype = [ctypes.c_int] * n_int, ctypes.c_longlong
         lib._signatures_set = True
     return lib
+
+
+def _scratch(name: str, device, *shape) -> torch.Tensor:
+    """The global scratch a launch of csrc/<name>.cu needs at this shape
+    (None where its buffers fit in shared memory); raises for a shape the
+    launcher does not take."""
+    lib = _library(name)
+    n = getattr(lib, _SCRATCH[name][0])(*shape)
+    if n < 0:
+        raise ValueError(f"{_LAUNCHERS[name][0]}: the kernel does not take the shape {shape}")
+    return torch.empty((n,), dtype=torch.float32, device=device) if n > 0 else None
 
 
 def tdgsc_frames(bm: torch.Tensor, d: torch.Tensor, yp: torch.Tensor, up, cfg):
     """The K5 kernel: ``tdgsc_frames_plain``'s recursion, one block per
     utterance.  CPU tensors run ``tdgsc_frames_plain``; CUDA tensors launch
-    the kernel (float32, contiguous, C = M - 1 from 1 to 7) or raise."""
+    the kernel (float32, contiguous, C = M - 1 >= 1) or raise."""
     if bm.device.type == "cpu":
         return tdgsc_frames_plain(bm, d, yp, up, cfg)
     B, C, S = bm.shape
@@ -365,8 +380,8 @@ def tdgsc_frames(bm: torch.Tensor, d: torch.Tensor, yp: torch.Tensor, up, cfg):
     T, F = S // Lf, Lf + 1
     extra = () if up is None else (up,)
     _build.check_tensors("fused_tdgsc", bm, d, yp, *extra)
-    if C not in _KERNEL_CHANNELS:
-        raise ValueError(f"fused_tdgsc: the kernel is built for M - 1 from 1 to 7 (2 to 8 mics), got {C}")
+    if C < 1:
+        raise ValueError(f"fused_tdgsc: the kernel takes M - 1 >= 1 blocking-matrix channels, got {C}")
     if d.shape != (B, S) or yp.shape != (B, T, F) or (up is not None and up.shape != (B, C, T, F)):
         raise ValueError("fused_tdgsc: d must be [B, S'], yp [B, T, F] and up [B, C, T, F]")
     if (up is not None) != cfg.postfilter:
@@ -374,9 +389,11 @@ def tdgsc_frames(bm: torch.Tensor, d: torch.Tensor, yp: torch.Tensor, up, cfg):
     out = torch.empty((B, S), dtype=torch.float32, device=bm.device)
     p = torch.empty((B, T, F), dtype=torch.float32, device=bm.device)
     params = _tdgsc_params(cfg)
+    scratch = _scratch("flms", bm.device, C, B, Lf, int(up is not None))
     err = _library("flms").fused_tdgsc_launch(
         bm.data_ptr(), d.data_ptr(), yp.data_ptr(), up.data_ptr() if up is not None else None,
-        _tables(2 * Lf, bm.device).data_ptr(), out.data_ptr(), p.data_ptr(), C, B, T, Lf,
+        _tables(2 * Lf, bm.device).data_ptr(), out.data_ptr(), p.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, C, B, T, Lf,
         ctypes.addressof(params), torch.cuda.current_stream(bm.device).cuda_stream,
     )
     _build.check_launch("flms", err, "fused_tdgsc")
@@ -687,9 +704,11 @@ def _fdgsc_launch(fbf, dbm, daic, yp, cfg, out, p, bm, stream) -> None:
     B, M, S = dbm.shape
     Lf = cfg.frame_len
     params = _fdgsc_params(cfg)
+    scratch = _scratch("fdgsc", dbm.device, M, B, Lf)
     err = _library("fdgsc").fused_fdgsc_launch(
         fbf.data_ptr(), dbm.data_ptr(), daic.data_ptr(), yp.data_ptr(), _fdgsc_tables(2 * Lf, dbm.device).data_ptr(),
-        out.data_ptr(), p.data_ptr(), bm.data_ptr(), M, B, S // Lf, Lf, ctypes.addressof(params), stream,
+        out.data_ptr(), p.data_ptr(), bm.data_ptr(), scratch.data_ptr() if scratch is not None else None, M, B,
+        S // Lf, Lf, ctypes.addressof(params), stream,
     )
     _build.check_launch("fdgsc", err, "fused_fdgsc")
 
@@ -697,15 +716,15 @@ def _fdgsc_launch(fbf, dbm, daic, yp, cfg, out, p, bm, stream) -> None:
 def fdgsc_frames(fbf, dbm, daic, yp, cfg):
     """The K8 kernel: ``fdgsc_frames_plain``'s recursion, one block per
     utterance.  CPU tensors run ``fdgsc_frames_plain``; CUDA tensors launch
-    the kernel (float32, contiguous, M from 2 to 8) or raise."""
+    the kernel (float32, contiguous, M >= 2) or raise."""
     if dbm.device.type == "cpu":
         return fdgsc_frames_plain(fbf, dbm, daic, yp, cfg)
     _build.check_tensors("fused_fdgsc", fbf, dbm, daic, yp)
     B, M, S = dbm.shape
     Lf = cfg.frame_len
     T, F = S // Lf, Lf + 1
-    if M not in _FDGSC_MICS:
-        raise ValueError(f"fused_fdgsc: the kernel is built for M from 2 to 8, got {M}")
+    if M < 2:
+        raise ValueError(f"fused_fdgsc: the kernel takes M >= 2 mics, got {M}")
     if fbf.shape != (B, S) or daic.shape != (B, S) or yp.shape != (B, T, F) or S % Lf:
         raise ValueError("fused_fdgsc: fbf and daic must be [B, S'], dbm [B, M, S'] and yp [B, T, F]")
     out = torch.empty_like(fbf)

@@ -23,17 +23,18 @@ lambda_d in; the MVDR output (with the OM-LSA gain when p and lambda_d are
 given) out.  The gate is an input, so no MCRA runs in the kernel, and the
 kernel and its plain version see the same gate decisions.  The TPU
 kernel's tiling (``f_tile``, ``t_chunk``, the joint 8 x ``f_tile`` lane
-packing and its padding) is dropped: one CUDA thread runs one (utterance,
-bin) lane through every frame, and the ragged last block is masked.
-Without a rank-1 mode the numerics do not depend on any chunking.
+packing and its padding) is dropped: a group of threads runs one
+(utterance, bin) lane through every frame (``csrc/mvdr.cu``: up to 8 mics
+4 threads, each solving one frame of every 4, above 8 one thread a mic
+column), and the ragged end of the grid is masked.  Without a rank-1 mode the numerics
+do not depend on any chunking.
 
 What bounds K1 on an H100 at the flagship size (B=64, M=8, 4 s, T=500,
 F=129): it moves the spectra, the gate and the MCRA tracks in and the
 output out (~350 MB, ~0.1 ms at 3.35 TB/s) and does ~5e9 float32
 operations, nearly all on the open-gate frames (~0.08 ms at 67 TFLOP/s),
-so bytes bound it.  This first version reads each lane's M
-complex inputs as M float2 loads, which neighbouring threads issue at a
-stride of M * 8 bytes, and keeps the lane state in registers.
+so bytes bound it; the per-frame chain of the factorisation and the
+solves lies above both.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ import torch
 from distantspeech_tpu_torch.ops import _build
 
 LAUNCHES = {"fused_mvdr_scan": 0}
-_KERNEL_MICS = range(2, 9)  # the M the CUDA templates are instantiated for: 2 to 8
+MAX_KERNEL_MICS = 128  # csrc/mvdr.cu's kMaxMics: up to 4 mic columns a thread
 
 
 def _cmul(ar, ai, br, bi):
@@ -380,15 +381,18 @@ def fused_mvdr_scan(
     """The K1 kernel: the gated MVDR frame loop, optionally with the OM-LSA
     gain fused in.  Same arguments and result as ``fused_mvdr_scan_plain``,
     which CPU tensors run; a CUDA tensor launches the kernel (complex64 Z,
-    float32 p and lam, M from 2 to 8) or raises."""
+    float32 p and lam, M from 2 to 128) or raises."""
     _validate_scan(Z, p, lam)
     if Z.device.type == "cpu":
         return fused_mvdr_scan_plain(Z, gate, steer, alpha_v, diag, rel_diag, p, lam, alpha_xi, gmin)
     T, B, F, M = Z.shape
     if Z.dtype != torch.complex64:
         raise ValueError(f"fused_mvdr_scan: the kernel takes complex64 spectra, got {Z.dtype}")
-    if M not in _KERNEL_MICS:
-        raise ValueError(f"fused_mvdr_scan: the kernel is built for M from 2 to 8, got M={M}")
+    if not 2 <= M <= MAX_KERNEL_MICS:
+        raise ValueError(
+            f"fused_mvdr_scan: the kernel takes M from 2 to {MAX_KERNEL_MICS} (a thread holds up to 4 of the "
+            f"lane's mic columns), got M={M}"
+        )
     Zf = torch.view_as_real(Z.contiguous())  # [T, B, F, M, 2]
     g = gate.to(torch.float32).contiguous()
     sv = torch.view_as_real(torch.as_tensor(steer, device=Z.device).to(torch.complex64).contiguous())

@@ -82,8 +82,8 @@ def srp_spectrum(y2: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     R, F, M2 = y2.shape
     if G.ndim != 3 or G.shape[:2] != (F, M2) or G.shape[2] % 2:
         raise ValueError(f"fused_srp_spectrum: G must be [F={F}, 2M={M2}, 2 Theta], got {tuple(G.shape)}")
-    if M2 // 2 not in range(2, 9):
-        raise ValueError(f"fused_srp_spectrum: the kernel is built for M from 2 to 8, got {M2 // 2}")
+    if M2 // 2 < 2:
+        raise ValueError(f"fused_srp_spectrum: the kernel takes M >= 2 mics, got {M2 // 2}")
     Theta = G.shape[2] // 2
     out = torch.empty((R, Theta), dtype=torch.float32, device=y2.device)
     err = _library().fused_srp_launch(
@@ -95,12 +95,13 @@ def srp_spectrum(y2: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def fused_srp_spectrum(Y_tfm, grid, phat: bool = True) -> torch.Tensor:
+def fused_srp_spectrum(Y_tfm, grid, phat: bool = True, packed=None) -> torch.Tensor:
     """Angle spectrum of a spectrogram, fused.  Y_tfm: [T, ..., F, M]
-    complex; grid: [Theta, F, M] complex.  Returns [T, ..., Theta] float32,
-    ``doa.srp.srp_angle_spectrum`` to float32 rounding.  A tensor stays on
-    its device; other inputs go to the card."""
+    complex; grid: [Theta, F, M] complex, or None where ``packed`` gives
+    ``pack_grid``'s G on Y_tfm's device already.  Returns [T, ..., Theta]
+    float32, ``doa.srp.srp_angle_spectrum`` to float32 rounding.  A tensor
+    stays on its device; other inputs go to the card."""
     Y_tfm = wrapper_input(Y_tfm)
-    G = pack_grid(grid, Y_tfm.device)
+    G = pack_grid(grid, Y_tfm.device) if packed is None else packed
     out = srp_spectrum(whitened_rows(Y_tfm, phat).contiguous(), G)
     return out.reshape(*Y_tfm.shape[:-2], G.shape[-1] // 2)

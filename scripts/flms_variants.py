@@ -12,8 +12,8 @@ A variant is a named edit of a copy of this tree's ``csrc/`` (``EDITS``):
   warp (or warp pair) a sequence, with a block barrier after each radix-8
   pass (two more a batch at N = 512);
 - ``block-r2``: the same with radix-2 passes, a block barrier after each of
-  the log2 N stages (eight more a batch at N = 512: the barrier count of the
-  block-wide ``fft_stages`` design);
+  the log2 N stages (eight more a batch at N = 512: the barrier count of a
+  block-wide radix-2 design);
 - ``aec-lead0``: K7 with every mic group's single-warp phases on its first
   warp instead of rotated over the SM sub-partitions;
 

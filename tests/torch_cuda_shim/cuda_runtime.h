@@ -5,8 +5,8 @@
 //
 // - __syncthreads is a std::barrier of the block, __syncwarp one of the warp,
 //   group_sync(id, n) (bar.sync id, n) one per (id, n) of the block;
-// - __shfl_xor_sync, __shfl_up_sync and __shfl_sync exchange through a
-//   two-half per-thread array, one warp barrier a shuffle;
+// - __shfl_xor_sync, __shfl_up_sync, __shfl_sync and __any_sync exchange
+//   through a two-half per-thread array, one warp barrier a shuffle;
 // - the cp.async helpers of flms_fft.cuh are plain copies, their commit and
 //   wait no-ops;
 // - dynamic shared memory is filled with NaN at each block's start, so a read
@@ -89,32 +89,42 @@ inline void* dynamic_smem() { return block->smem; }
 template <class Body>
 void launch(unsigned grid, unsigned nthreads, size_t smem_bytes, cudaStream_t, Body&& body);
 
+template <class Body>
+void launch(dim3 grid, unsigned nthreads, size_t smem_bytes, cudaStream_t, Body&& body);
+
 }  // namespace shim
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 template <class Body>
-void shim::launch(unsigned grid, unsigned nthreads, size_t smem_bytes, cudaStream_t, Body&& body) {
+void shim::launch(dim3 grid, unsigned nthreads, size_t smem_bytes, cudaStream_t, Body&& body) {
   if (nthreads == 0 || nthreads > 1024 || smem_bytes > kMaxSmem) {
     last_error = cudaErrorInvalidConfiguration;
     return;
   }
-  for (unsigned b = 0; b < grid; ++b) {
-    Block blk(nthreads, smem_bytes);
-    std::vector<std::thread> threads;
-    threads.reserve(nthreads);
-    for (unsigned t = 0; t < nthreads; ++t) {
-      threads.emplace_back([&, t, b] {
-        threadIdx = dim3{t, 1, 1};
-        blockIdx = dim3{b, 1, 1};
-        blockDim = dim3{nthreads, 1, 1};
-        gridDim = dim3{grid, 1, 1};
-        block = &blk;
-        body();
-      });
+  for (unsigned by = 0; by < grid.y; ++by) {
+    for (unsigned bx = 0; bx < grid.x; ++bx) {
+      Block blk(nthreads, smem_bytes);
+      std::vector<std::thread> threads;
+      threads.reserve(nthreads);
+      for (unsigned t = 0; t < nthreads; ++t) {
+        threads.emplace_back([&, t, bx, by] {
+          threadIdx = dim3{t, 1, 1};
+          blockIdx = dim3{bx, by, 1};
+          blockDim = dim3{nthreads, 1, 1};
+          gridDim = grid;
+          block = &blk;
+          body();
+        });
+      }
+      for (auto& th : threads) th.join();
     }
-    for (auto& th : threads) th.join();
   }
+}
+
+template <class Body>
+void shim::launch(unsigned grid, unsigned nthreads, size_t smem_bytes, cudaStream_t st, Body&& body) {
+  launch(dim3{grid, 1, 1}, nthreads, smem_bytes, st, body);
 }
 
 inline void __syncthreads() { shim::block->all.arrive_and_wait(); }
@@ -150,8 +160,21 @@ inline float __shfl_up_sync(unsigned, float v, unsigned delta) {
 
 inline float __shfl_sync(unsigned, float v, int src_lane) { return shim::exchange(v, (unsigned)src_lane); }
 
+// Whether p holds on any lane of the warp: every lane publishes p into the
+// exchange half of this round and, after the warp's barrier, reads all 32.
+inline bool __any_sync(unsigned, bool p) {
+  float* x = shim::block->exchange.data() + (shim::parity ^= 1u) * shim::block->exchange.size() / 2;
+  x[threadIdx.x] = p ? 1.f : 0.f;
+  __syncwarp();
+  bool any = false;
+  for (unsigned l = 0; l < 32; ++l) any = any || x[(threadIdx.x & ~31u) | l] != 0.f;
+  return any;
+}
+
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
+
+inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 
 inline unsigned __brev(unsigned x) {
   unsigned r = 0;

@@ -48,6 +48,11 @@ CASES = [(kernel, variant, Lf, 4) for Lf in (256, 128) for kernel, variant in
          (("k5", "core"), ("k5", "postfilter"), ("k8", "core"))]
 CASES += [(kernel, variant, 128, mics) for mics in (2, 8, 3, 6) for kernel, variant in
           (("k5", "core"), ("k5", "postfilter"), ("k8", "core"))]
+# above 8 mics, the channel count a run-time argument: 12 mics at Lf=128
+# (in shared memory), and 16 at Lf=256 with the postfilter and 20 with K8
+# (their buffers in a global scratch)
+CASES += [("k5", "core", 128, 12), ("k5", "postfilter", 128, 12), ("k8", "core", 128, 12)]
+CASES += [("k5", "postfilter", 256, 16), ("k8", "core", 256, 20)]
 # K7 (variant = num_block, size = hop): both filter splits at both hops and
 # 1, 2, 4 and 8 mics; 3 mics leave a mic group of the block idle, and 9 at
 # hop 256 take two blocks an utterance
@@ -61,6 +66,16 @@ CASES += [("k7", "nb2", 256, 9), ("k7", "nb2", 128, 3)]
 CASES += [("k4", "rank1", 256, mics) for mics in (2, 3, 4, 6, 8)] + [("k4", "ldl", 256, 8)]
 CASES += [("k4", "rank1", 512, mics) for mics in (2, 3, 4, 6, 8)]
 CASES += [("k4", "rank1", 1024, mics) for mics in (2, 8)]
+# the mega kernel's general variant: mixed-radix transforms at n_fft 768
+# (8 8 4 3) and 1280 (8 8 4 5), 2048 (more bins than threads), and 12 mics
+# (memory lanes in a global scratch)
+CASES += [("k4", "rank1", 768, 4), ("k4", "rank1", 1280, 3), ("k4", "rank1", 2048, 2), ("k4", "rank1", 256, 12)]
+# and at 2048 with 10 mics, where its spectra outgrow shared memory too
+CASES += [("k4", "rank1", 2048, 10)]
+# K2 (enhance.cu's lane kernel) above 8 mics, rank-1 at n_fft 256: its
+# memory lanes in shared memory (12 mics; in a global scratch at 28, the
+# last case)
+CASES += [("k2", "rank1", 256, 12)]
 # K9 (variant = config, size = Lf): the default config and McSpp's MCRA
 # window cut to L=3 (so that p moves within the frames), at Lf=128 (one warp
 # a transform) and 256 (two)
@@ -69,11 +84,30 @@ CASES += [("k9", variant, Lf, 4) for variant in ("default", "short") for Lf in (
 # the MCRA lane kernel (variant: with or without S / Smin, size = F): a
 # window of L = 3 at F = 129 and 257, so that p moves and the minima reset
 CASES += [("mcra", variant, F, 1) for variant in ("sr", "nosr") for F in (129, 257)]
-LIBRARIES = {"k5": "flms", "k8": "fdgsc", "k7": "aec", "k4": "enhance", "k9": "sgsc", "mcra": "mcra"}
+# K6 (variant = defer, size = Lf): B=2 x 12 frames with the defer cut so
+# that the FIFO wraps (Dn = 4 at Lf 256, 7 at 128), Dn = 2 (the slot read
+# for the next frame is the one written the frame before), and Dn = 1,
+# where the cleaner runs the ANC's own taps
+K6_FRAMES = 12
+K6_DEFER = {"wrap": 0.05, "dn2": 0.02, "dn1": 0.0}
+CASES += [("k6", "wrap", Lf, 2) for Lf in (256, 128)] + [("k6", "dn2", 256, 2), ("k6", "dn1", 256, 2)]
+# K1 (variant = gain or none, size = mics): B=2 x 2 bins x 6 frames (the
+# last block of 4 frames partial), a gate open on ~70% of the lane-frames,
+# at 2, 3 and 8 mics (the frame-parallel layout: 4 threads a lane, a frame
+# each), 12 (the column layout, a group of 16 threads with 4 idle columns)
+# and 33 (32 threads a lane, two columns a thread; ~1,300 shuffles a frame,
+# each a barrier of the shim's 32 warp threads, so the case stays small)
+K1_FRAMES, K1_BINS = 6, 2
+CASES += [("k1", variant, mics, mics) for variant in ("gain", "none") for mics in (2, 3, 8, 12, 33)]
+# Last, so that the cases before keep their seeds: K2 with its memory lanes
+# in a global scratch (28 mics), and K1 by mic columns with one column a
+# thread (20 mics; 33 takes two)
+CASES += [("k2", "rank1", 256, 28), ("k1", "gain", 20, 20)]
+LIBRARIES = {"k1": "mvdr", "k2": "enhance", "k5": "flms", "k8": "fdgsc", "k7": "aec", "k4": "enhance", "k9": "sgsc", "mcra": "mcra", "k6": "kws"}
 
 
 def case_name(kernel: str, variant: str, size: int, mics: int) -> str:
-    return f"{kernel}-{variant}-{size}" + ("" if mics in (4, 1) else f"-m{mics}")
+    return f"{kernel}-{variant}-{size}" + ("" if mics in (4, 1) or kernel in ("k6", "k1") else f"-m{mics}")
 
 
 def rewrite(source: str) -> str:
@@ -150,15 +184,19 @@ def run_k5(lib, variant: str, Lf: int, mics: int, seed: int) -> dict:
     up = f32(rng.gamma(1.0, 1.0, (B, C, T, F))) if cfg.postfilter else None
     out, p = torch.full((B, S), float("nan")), torch.full((B, T, F), float("nan"))
     params = cf._tdgsc_params(cfg)
+    lib.fused_tdgsc_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.fused_tdgsc_scratch_floats.restype = ctypes.c_longlong
+    n_scratch = lib.fused_tdgsc_scratch_floats(C, B, Lf, int(cfg.postfilter))
+    scratch = torch.full((n_scratch,), float("nan")) if n_scratch > 0 else None
     fn = lib.fused_tdgsc_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     err = fn(bm.data_ptr(), d.data_ptr(), yp.data_ptr(), up.data_ptr() if up is not None else None,
-             cf._tables(2 * Lf, torch.device("cpu")).data_ptr(), out.data_ptr(), p.data_ptr(), C, B, T, Lf,
-             ctypes.addressof(params), None)
+             cf._tables(2 * Lf, torch.device("cpu")).data_ptr(), out.data_ptr(), p.data_ptr(),
+             scratch.data_ptr() if scratch is not None else None, C, B, T, Lf, ctypes.addressof(params), None)
     want, p_want = cf.tdgsc_frames_plain(bm, d, yp, up, cfg)
     return {"err": err, "out": _gap(out, want), "p": float((p - p_want).abs().max()),
-            "p_moves": float(p_want.max() - p_want.min())}
+            "p_moves": float(p_want.max() - p_want.min()), "scratch_floats": n_scratch}
 
 
 def run_k8(lib, Lf: int, mics: int, seed: int) -> dict:
@@ -179,15 +217,19 @@ def run_k8(lib, Lf: int, mics: int, seed: int) -> dict:
     yp = f32(rng.gamma(1.0, 1.0, (B, T, F)) * rng.uniform(0.2, 5.0, (B, T, 1)))
     out, p, bm = torch.full((B, S), float("nan")), torch.full((B, T, F), float("nan")), torch.full((B, M, S), float("nan"))
     params = cf._fdgsc_params(cfg)
+    lib.fused_fdgsc_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.fused_fdgsc_scratch_floats.restype = ctypes.c_longlong
+    n_scratch = lib.fused_fdgsc_scratch_floats(M, B, Lf)
+    scratch = torch.full((n_scratch,), float("nan")) if n_scratch > 0 else None
     fn = lib.fused_fdgsc_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     err = fn(fbf.data_ptr(), dbm.data_ptr(), daic.data_ptr(), yp.data_ptr(),
              cf._fdgsc_tables(2 * Lf, torch.device("cpu")).data_ptr(), out.data_ptr(), p.data_ptr(), bm.data_ptr(),
-             M, B, T, Lf, ctypes.addressof(params), None)
+             scratch.data_ptr() if scratch is not None else None, M, B, T, Lf, ctypes.addressof(params), None)
     want, p_want, bm_want = cf.fdgsc_frames_plain(fbf, dbm, daic, yp, cfg)
     return {"err": err, "out": _gap(out, want), "bm": _gap(bm, bm_want), "p": float((p - p_want).abs().max()),
-            "p_moves": float(p_want.max() - p_want.min())}
+            "p_moves": float(p_want.max() - p_want.min()), "scratch_floats": n_scratch}
 
 
 def run_k7(lib, NB: int, hop: int, mics: int, seed: int) -> dict:
@@ -223,6 +265,73 @@ def run_k7(lib, NB: int, hop: int, mics: int, seed: int) -> dict:
             "transfers": int(u_want.sum()), "mics_per_block": per_block, "smem_bytes": smem.value}
 
 
+def run_k1(lib, gain: bool, mics: int, seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from distantspeech_tpu_torch.ops import cuda_mvdr as cm
+
+    T1, F, M = K1_FRAMES, K1_BINS, mics
+    rng = np.random.default_rng(seed)
+    cplx = lambda *s: rng.standard_normal(s) + 1j * rng.standard_normal(s)
+    Z = torch.as_tensor((cplx(T1, B, F, M) + 2.0 * cplx(T1, B, F, 1)).astype(np.complex64))
+    gate = rng.random((T1, B, F)) < 0.7
+    gate[0] = True  # u = 0 until a first update, and y = 0 / 0
+    gate = torch.as_tensor(gate.astype(np.float32))
+    steer = torch.as_tensor(np.exp(1j * rng.uniform(0, 2 * np.pi, (F, M))).astype(np.complex64))
+    pl = [torch.as_tensor(a, dtype=torch.float32) for a in (rng.random((T1, B, F)), rng.gamma(1.0, 1.0, (T1, B, F)))]
+    p, lam = pl if gain else (None, None)
+    kw = dict(alpha_v=0.9, diag=1e-6, rel_diag=1e-5, alpha_xi=0.92, gmin=0.0631)
+    params = cm._LaneParams(alpha_v=kw["alpha_v"], beta_v=1.0 - kw["alpha_v"], diag=kw["diag"],
+                            rel_diag_m=kw["rel_diag"] / M, alpha_xi=kw["alpha_xi"], one_m_alpha_xi=1.0 - kw["alpha_xi"],
+                            gmin=kw["gmin"], log_gmin=float(np.log(kw["gmin"])))
+    Y = torch.full((T1, B, F, 2), float("nan"))
+    fn = lib.fused_mvdr_scan_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    Zf, sv = torch.view_as_real(Z).contiguous(), torch.view_as_real(steer).contiguous()
+    err = fn(Zf.data_ptr(), gate.data_ptr(), p.data_ptr() if gain else None, lam.data_ptr() if gain else None,
+             sv.data_ptr(), Y.data_ptr(), M, T1, B, F, ctypes.addressof(params), None)
+    want = cm.fused_mvdr_scan_plain(Z, gate, steer, p=p, lam=lam, **kw)
+    return {"err": err, "out": _gap(Y, torch.view_as_real(want))}
+
+
+def run_k6(lib, variant: str, Lf: int, seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from distantspeech_tpu_torch.kws.dual_mic import DualMicKwsConfig
+    from distantspeech_tpu_torch.ops import cuda_flms as cf
+
+    cfg = DualMicKwsConfig(frame_len=Lf, defer_seconds=K6_DEFER[variant])
+    T6, S = K6_FRAMES, K6_FRAMES * Lf
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((B, S + Lf))
+    # mic 1 hears mic 0's source through a short filter, plus its own noise
+    x = np.stack([src[:, Lf:], 0.8 * src[:, Lf - 3:-3] + 0.3 * src[:, Lf - 7:-7]
+                  + 0.1 * rng.standard_normal((B, S))], axis=1)
+    x0, d = (a.contiguous() for a in cf._kws_inputs(torch.as_tensor(x, dtype=torch.float32), cfg))
+    fifo = torch.zeros((B, cfg.delay_frames_n, Lf))
+    out = torch.full((B, S), float("nan"))
+    params = cf._KwsParams(alpha=cfg.flms.alpha, one_m_alpha=1.0 - cfg.flms.alpha, mu2=2.0 * cfg.flms.mu)
+    fn = lib.fused_kws_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    err = fn(x0.data_ptr(), d.data_ptr(), cf._tables(2 * Lf, torch.device("cpu")).data_ptr(), fifo.data_ptr(),
+             out.data_ptr(), B, T6, Lf, cfg.delay_frames_n, ctypes.addressof(params), None)
+    want = cf.kws_frames_plain(x0, d, cfg)
+    # the cleaner's share of the output: where it is 0, out is d to the bit
+    cleaned = float((want - d).abs().max() / d.abs().max())
+    # the gap is taken against max|d|, the scale the transforms round at: the
+    # output d - c is the small residual where the cleaner cancels well (with
+    # Dn = 1 it is the ANC's own error)
+    # before the FIFO has wrapped the cleaner's taps are zeros: out is d to the bit
+    head = min(cfg.delay_frames_n, T6) * Lf
+    return {"err": err, "out": float((out - want).abs().max() / d.abs().max()), "dn": cfg.delay_frames_n,
+            "cleaned": cleaned,
+            "exact_passthrough": bool(torch.equal(out[:, :head], d[:, :head]))}
+
+
 def open_steady(x, cfg, t_chunk: int) -> int:
     """Lane-frames whose covariance gate opens after the rank-1 warmup (the
     gate depends on MCRA alone; the guard is off)."""
@@ -235,7 +344,11 @@ def open_steady(x, cfg, t_chunk: int) -> int:
     return int((p < cfg.mvdr.p_vad)[_warm_chunks(t_chunk) * t_chunk:].sum())
 
 
-def run_k4(lib, mics: int, inv_mode: str, n_fft: int, seed: int) -> dict:
+def _enhance_case(mics: int, inv_mode: str, n_fft: int, seed: int):
+    """K2's and K4's inputs: B=2 x K4_FRAMES frames of speech-like bursts
+    over noise, the guard off (no decision of the kernel's can part from
+    the plain version's), rel_diag on (so that rank-1 re-anchors its
+    loading); (cfg, x, steer, steering planes, lane params)."""
     import numpy as np
     import torch
 
@@ -246,29 +359,62 @@ def run_k4(lib, mics: int, inv_mode: str, n_fft: int, seed: int) -> dict:
     from distantspeech_tpu_torch.ops import cuda_enhance as ce
     from distantspeech_tpu_torch.transform.stft import StftConfig
 
-    # the guard off (no decision of the kernel's can part from the plain
-    # version's); rel_diag on, so that rank-1 re-anchors its loading
     cfg = EnhanceConfig(mvdr=MvdrConfig(stft=StftConfig(n_fft, n_fft // 2), vad_guard=False, rel_diag=1e-5))
-    hop, T4, tc = cfg.stft.hop, K4_FRAMES, K4_T_CHUNK
+    hop, T4 = cfg.stft.hop, K4_FRAMES
     rng = np.random.default_rng(seed)
     env = np.repeat(rng.random((B, T4)) < 0.5, hop, axis=1)  # speech-like bursts that MCRA sees come and go
     x = env[:, None] * rng.standard_normal((B, 1, T4 * hop)) + 0.3 * rng.standard_normal((B, mics, T4 * hop))
     x = torch.as_tensor(x, dtype=torch.float32).contiguous()
-    steer = steering_vector(ArrayGeometry.linear(mics, 0.032), np.array([np.pi / 2, 0.0]), cfg.stft.n_fft)
-    _, planes, _ = ce._prepare(x, steer.astype(np.complex64), cfg, tc, inv_mode)
-    y = torch.full((B, T4 * hop), float("nan"))
-    params = ce._lane_params(cfg, mics, tc, inv_mode)
+    steer = steering_vector(ArrayGeometry.linear(mics, 0.032), np.array([np.pi / 2, 0.0]), n_fft).astype(np.complex64)
+    _, planes, _ = ce._prepare(x, steer, cfg, K4_T_CHUNK, inv_mode)
+    return cfg, x, steer, planes, ce._lane_params(cfg, mics, K4_T_CHUNK, inv_mode)
+
+
+def run_k4(lib, mics: int, inv_mode: str, n_fft: int, seed: int) -> dict:
+    import torch
+
+    from distantspeech_tpu_torch.ops import cuda_enhance as ce
+
+    cfg, x, steer, planes, params = _enhance_case(mics, inv_mode, n_fft, seed)
+    y = torch.full((B, K4_FRAMES * cfg.stft.hop), float("nan"))
     lib.fused_enhance_full_scratch_floats.argtypes = [ctypes.c_int] * 2
+    lib.fused_enhance_full_scratch_floats.restype = ctypes.c_longlong
     n_scratch = lib.fused_enhance_full_scratch_floats(mics, n_fft)
     scratch = torch.full((B * n_scratch,), float("nan")) if n_scratch > 0 else None
     fn = lib.fused_enhance_full_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), ce._dft_tables(cfg.stft, torch.device("cpu")).data_ptr(), planes.data_ptr(), y.data_ptr(),
-             scratch.data_ptr() if scratch is not None else None, mics, B, cfg.stft.n_fft, T4,
+             scratch.data_ptr() if scratch is not None else None, mics, B, n_fft, K4_FRAMES,
              cfg.stft.synthesis_gain, ctypes.addressof(params), None)
-    want = ce.fused_enhance_plain(x, steer.astype(np.complex64), cfg, tc, inv_mode)
-    return {"err": err, "out": _gap(y, want), "open_steady": open_steady(x, cfg, tc), "scratch_floats": n_scratch}
+    want = ce.fused_enhance_plain(x, steer, cfg, K4_T_CHUNK, inv_mode)
+    return {"err": err, "out": _gap(y, want), "open_steady": open_steady(x, cfg, K4_T_CHUNK),
+            "scratch_floats": n_scratch}
+
+
+def run_k2(lib, mics: int, inv_mode: str, n_fft: int, seed: int) -> dict:
+    import torch
+
+    from distantspeech_tpu_torch.ops import cuda_enhance as ce
+
+    cfg, x, _, planes, params = _enhance_case(mics, inv_mode, n_fft, seed)
+    Z = ce._analysis_planes(x, cfg.stft)
+    Sf = ce._smoothed_power(Z, cfg.mvdr.mcra.b).contiguous()
+    F = cfg.stft.half_bin
+    Y = torch.full((K4_FRAMES, 2, B, F), float("nan"))
+    lib.fused_enhance_scratch_floats.argtypes = [ctypes.c_int] * 3
+    lib.fused_enhance_scratch_floats.restype = ctypes.c_longlong
+    n_scratch = lib.fused_enhance_scratch_floats(mics, B, F)
+    scratch = torch.full((n_scratch,), float("nan")) if n_scratch > 0 else None
+    fn = lib.fused_enhance_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    err = fn(Z.data_ptr(), Sf.data_ptr(), planes.data_ptr(), Y.data_ptr(),
+             scratch.data_ptr() if scratch is not None else None, mics, B, F, K4_FRAMES,
+             ctypes.addressof(params), None)
+    want = ce.enhance_lanes_plain(Z, Sf, planes, cfg, K4_T_CHUNK, inv_mode)
+    return {"err": err, "out": _gap(Y, want), "open_steady": open_steady(x, cfg, K4_T_CHUNK),
+            "scratch_floats": n_scratch}
 
 
 def run_k9(lib, variant: str, Lf: int, seed: int) -> dict:
@@ -353,6 +499,12 @@ def main(lib_dir: str, kernels=()) -> None:
             g = run_k7(lib, int(variant[2:]), size, mics, seed=i)
         elif kernel == "k9":
             g = run_k9(lib, variant, size, seed=i)
+        elif kernel == "k2":
+            g = run_k2(lib, mics, variant, size, seed=i)
+        elif kernel == "k1":
+            g = run_k1(lib, variant == "gain", size, seed=i)
+        elif kernel == "k6":
+            g = run_k6(lib, variant, size, seed=i)
         elif kernel == "mcra":
             g = run_mcra(lib, variant == "sr", size, seed=i)
         else:
