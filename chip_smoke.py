@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases; any failure exits nonzero, and nothing is printed as a result:
 
@@ -30,12 +30,14 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    output SNR above input SNR; then the same for ``backend="fused"``;
 5. kernel vs plain at the main path's shapes (T=500 -> t_chunk 50: 2 warm
    chunks, 8 steady ones, re-anchors at other frames than at the gate
-   size, and a 65-block lane grid): the main path's own outputs against
-   the plain version with the benched config (< 2e-2), and both kernels
-   again with the guard off (< 1e-3);
+   size, and a 129-block lane grid, a thread pair a lane): the main path's own
+   outputs against the plain version with the benched config (< 2e-2), and
+   both kernels again with the guard off (< 1e-3);
 6. CUDA-event timing at full size of both kernels (rank1 and ldl), of the
    'fused' wrapper and its stages, and of each kernel's plain version
-   (median of 3 calls after a warm-up);
+   (median of 3 calls after a warm-up); the lane kernel's (K2's) chain
+   floor and the operations one thread issues a frame in each layout
+   tried;
 7. kernel K1 (``fused_mvdr_scan``, ``csrc/mvdr.cu``): both variants against
    the plain version at B=8 x 8 mics x 1 s with the same gate, p and
    lambda_d fed to both, guard off and benched, and at 3 and 6 mics (< 1e-4
@@ -99,7 +101,8 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    8 x 4 s of a source reaching mic m m samples late (one launch each of K10
    and the MCRA lane kernel, which is held to its plain version on that
    input; the summed spectrum's pick within 3 degrees of
-   arccos(c / (0.032 fs)) or its mirror); timings;
+   arccos(c / (0.032 fs)) or its mirror); timings; its bound with the
+   products on the tensor cores in 3xTF32, beside the FP32 bound;
 14. the shapes beyond 8 mics and beyond the powers of two: K1 at 12, 16
    and 32 mics, K2 and K4 at 16, K5 (core and postfilter), K8 and K10 at 12
    and 16, each against its plain version at its gate size and tolerance,
@@ -123,11 +126,14 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    stages and K6 built without fused multiply-adds; ``kws_fused``'s input
    is shorter than K6's tap FIFO, which the row says, and a companion line
    runs it with the defer cut so that the FIFO wraps (< 1e-3);
-16. the ``kernels`` JSON line, the card line, and the final JSON line.
+16. with ``--parent DIR`` (a checkout of the parent commit), K2 and K10
+   alone and the flagship ``fused`` path and B6, timed in the parent and in
+   this tree in turns (``scripts/path_times.py``);
+17. the ``kernels`` JSON line, the card line, and the final JSON line.
 
-K1 and K6 also print a chain floor beside their bound: T frames times the
-longest dependent chain of one frame on the kernel's layout, counted from
-its code, at 4 cycles an operation and the card's maximum SM clock.
+K1, K2 and K6 also print a chain floor beside their bound: T frames times
+the longest dependent chain of one frame on the kernel's layout, counted
+from its code, at 4 cycles an operation and the card's maximum SM clock.
 """
 
 from __future__ import annotations
@@ -143,6 +149,7 @@ import numpy as np
 
 FS = 16000
 H100_FP32_FLOPS = 67e12  # NVIDIA H100 SXM data sheet, float32 outside the tensor cores
+H100_TF32_FLOPS = 495e12  # the same, TF32 on the tensor cores (dense)
 H100_HBM_BYTES = 3.35e12  # bytes/s
 TIGHT, FLIP = 1e-3, 2e-2  # kernel gates (bench.py's two gates)
 K1_GATE = 1e-4  # K1 and its plain version see the same gate: no decision can flip
@@ -309,8 +316,14 @@ def open_lane_frames(x, cfg, t_chunk):
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", help="a checkout of the parent commit, whose K2 and K10 (and the flagship fused path "
+                                     "and B6) are timed beside this tree's at the end, in turns")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a card", file=sys.stderr)
         return 2
@@ -344,12 +357,32 @@ def main() -> int:
     kernels += smoke_k10(dev, card, B=8, seconds=4)
     kernels += smoke_wide(dev, card, seconds=4)
     smoke_gate_rel(dev, card)
+    if args.parent:
+        parent_times(args.parent)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def parent_times(parent: str) -> None:
+    """K2 and K10 alone and the paths that run them (the flagship ``fused``,
+    B6) at their main sizes, in the parent checkout and in this tree, by
+    ``scripts/path_times.py`` in its own process each, in turns (parent,
+    tree, tree, parent); printed."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "scripts", "path_times.py")
+    ms = {}
+    for root in (parent, here, here, parent):
+        out = subprocess.run([sys.executable, script, "--root", root, "--paths", "K2", "K10", "flagship fused", "B6"],
+                             capture_output=True, text=True, check=True, timeout=900)
+        for name, v in json.loads(out.stdout.strip().splitlines()[-1])["ms"].items():
+            ms.setdefault((name, root == parent), []).append(v)
+    for name in ("K2", "K10", "flagship fused", "B6"):
+        print(f"{name} at its main size: this tree {', '.join(f'{v:.3f}' for v in ms[name, False])} ms, the parent "
+              f"{', '.join(f'{v:.3f}' for v in ms[name, True])} ms [{card_line()}]", flush=True)
 
 
 def bound(nbytes, nops):
@@ -589,6 +622,17 @@ def smoke(dev, card: str, B: int, seconds: int) -> list:
     # ---- bounds: bytes moved once, and the operations this input needs -------------
     b_full, by_full, b_lanes, by_lanes = enhance_bounds(x, cfg, tc, Z, Sf, planes)
 
+    # ---- the lane kernel's chain floor, and the operations one thread issues
+    # an open steady frame in each layout tried (PERF.md gives their times)
+    issued = k2_issued_ops(M)
+    print("fused_enhance operations one thread issues an open steady rank-1 frame: "
+          + ", ".join(f"{name} {issued[g]:.0f}" for g, name in (
+              (-2, "a thread pair, rows split (runs)"), (-4, "4 threads, rows split"),
+              (4, "4 frame-parallel"), (1, "1 thread a lane (the first design)"))), flush=True)
+    print(f"chain floor fused_enhance: {chain_ms(T, k2_chain_ops(M)):.4f} ms (T={T} frames x {k2_chain_ops(M):g} "
+          f"dependent operations of an open-gate steady frame at {FP32_DEP_CYCLES} cycles each, "
+          f"{sm_clock_mhz():.0f} MHz); bound {b_lanes:.4f} ms by {by_lanes} {tag}", flush=True)
+
     return [
         {"name": "fused_enhance_full", "route": "cuda", "source": "distantspeech_tpu_torch/csrc/enhance.cu",
          "replaces": "distantspeech_tpu/ops/pallas_enhance.py:391", "launches": launches["fused_enhance_full"],
@@ -704,6 +748,70 @@ def k1_chain_ops(M: int, gain: bool) -> float:
 
 def k1_chain_ms(T: int, M: int, gain: bool) -> float:
     return chain_ms(T, k1_chain_ops(M, gain))
+
+
+def k2_chain_ops(M: int) -> float:
+    """Dependent float32 operations on the longest chain of one open-gate
+    steady rank-1 frame in csrc/enhance.cu's lane kernel up to 8 mics (a
+    thread pair a lane, its rows split), counted from its code: MCRA's
+    recursion from its state to the gate (S's smoothing 2, the minima 2,
+    S / Smin and its threshold 3, p's recursion and clamp 5, the gate 1:
+    13); Bennett's column chain through sig, d_j and 1 / d_j (3 a column,
+    the reciprocal and its Newton step counted as one); the forward solve,
+    v_k settling after its last term, a complex multiply-subtract (2 a
+    row), the scale by 1 / D (1), and the back solve, each u_i the pair's
+    sum of its terms and a subtraction (2 a row); the output, a thread's
+    M / 2 running terms, the pair's sum, |den|^2, its reciprocal and the
+    product (M / 2 + 5); and the gain's (G_H1, gamma) carry (5).  Shuffles
+    and loads are not counted, so the floor lies below any run."""
+    return 13 + 3 * M + 2 * M + 1 + 2 * M + M / 2 + 5 + 5
+
+
+def k2_issued_ops(M: int) -> dict:
+    """Operations one thread issues for an open-gate steady rank-1 frame in
+    each layout of the lane kernel tried, counted like ``lane_ops`` on the plain versions: one thread a lane (1),
+    the whole frame; frame-parallel on 4 threads (4), the frame less the
+    3/4 of its solve and output that the group's other threads take; G
+    threads a lane with its rows split (-G), the frame less (G - 1) / G of
+    Bennett's row updates (all but the 11 scalar operations of each column,
+    which every thread runs), of the solve and of the output; {code:
+    operations}."""
+    import torch
+
+    from distantspeech_tpu_torch.ops import cuda_mvdr
+
+    z = [torch.ones(1, 3, dtype=torch.float64) for _ in range(M)]
+    L = lambda: [[z[0].clone() for _ in range(M)] for _ in range(M)]
+    solve = counted(cuda_mvdr._ldl_solve_factors, L(), L(), z, z, z, M)
+    output = counted(cuda_mvdr._mvdr_output, z, z, z, z, z, z, M)
+    bennett = counted(cuda_mvdr._mvdr_update_rank1, z, z, None, z, z, L(), L(), list(z), list(z), M, 0.9998) - solve
+    frame = lane_ops(M)["open_rank1"]
+    split = bennett - 11 * M + solve + output
+    return {1: frame, 4: frame - 3 / 4 * (solve + output), -2: frame - split / 2, -4: frame - 3 / 4 * split}
+
+
+def k10_bound(name, y2, G, M):
+    """K10's bound on rows y2 [R, F, 2M] and grid G [F, 2M, 2 Theta]: bytes
+    moved once; the products as the kernel runs them, 3xTF32 (three
+    tensor-core multiply-adds a product) at the card's TF32 rate; the
+    magnitudes (c0^2 + c1^2, the root and the sum: 4 float32 operations a
+    (row, bin, angle)) at its FP32 rate; printed beside the FP32 bound of the
+    first design (8M + 5 operations a (row, bin, angle)), and returned as
+    (ms, by)."""
+    R, F, _ = y2.shape
+    Theta = G.shape[-1] // 2
+    nbytes = 4 * (y2.numel() + G.numel() + R * Theta)
+    t_bytes = nbytes / H100_HBM_BYTES
+    t_tc = 3 * 2 * R * F * (2 * Theta) * (2 * M) / H100_TF32_FLOPS
+    t_fp = 4 * R * F * Theta / H100_FP32_FLOPS
+    b_ms = max(t_bytes, t_tc, t_fp) * 1e3
+    by = "bytes" if t_bytes >= max(t_tc, t_fp) else "operations"
+    fp32_ms, fp32_by = bound(nbytes, R * F * Theta * (8 * M + 5))
+    print(f"bound {name}: {b_ms:.4f} ms by {by} (tensor cores {t_tc * 1e3:.4f} ms for the 3xTF32 products at "
+          f"{H100_TF32_FLOPS / 1e12:.0f} TFLOP/s, magnitudes {t_fp * 1e3:.4f} ms at {H100_FP32_FLOPS / 1e12:.0f}, "
+          f"{nbytes} B {t_bytes * 1e3:.4f} ms); FP32 bound (8M + 5 a (row, bin, angle)): {fp32_ms:.4f} ms by "
+          f"{fp32_by}", flush=True)
+    return b_ms, by
 
 
 def k1_inputs(x, cfg):
@@ -1609,14 +1717,9 @@ def smoke_k10(dev, card: str, B: int, seconds: int) -> list:
           f"audio-s/s (B={B}, M={M}, {seconds} s; its MCRA track is the MCRA lane kernel over {T} frames); plain "
           f"{plain_ms:.1f} ms {tag}", flush=True)
 
-    # ---- bound: per (row, bin, angle) 2M complex multiply-adds as 8M real
-    # operations, then the magnitude and the sum: 8M + 5
-    R, F, _ = y2.shape
-    Theta = G.shape[-1] // 2
-    nops = R * F * Theta * (8 * M + 5)
-    nbytes = 4 * (y2.numel() + G.numel() + R * Theta)
-    b_ms, by = bound(nbytes, nops)
-    print(f"bound fused_srp_spectrum: {b_ms:.4f} ms by {by} ({nbytes} B; {nops:.4g} ops)", flush=True)
+    # ---- bound: the products on the tensor cores in 3xTF32, the magnitudes in
+    # float32; beside it the FP32 bound (8M + 5 a (row, bin, angle))
+    b_ms, by = k10_bound("fused_srp_spectrum", y2, G, M)
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return [{"name": "fused_srp_spectrum", "route": "cuda", "source": "distantspeech_tpu_torch/csrc/srp.cu",
              "replaces": "distantspeech_tpu/ops/pallas_srp.py:29", "launches": counts["fused_srp_spectrum"],
@@ -1920,10 +2023,7 @@ def smoke_wide(dev, card: str, seconds: int) -> list:
     check(bool(torch.isfinite(spec).all()) and rel < SRP_GATE,
           f"fused_srp_spectrum [M=12] on its path (B={B}, {seconds} s) vs plain: rel {rel:.3e} (max abs {mx:.3e}) "
           f"< {SRP_GATE:g}")
-    R, F, _ = y2.shape
-    Theta = G.shape[-1] // 2
-    b_ms, by = bound(4 * (y2.numel() + G.numel() + R * Theta), R * F * Theta * (8 * M + 5))
-    print(f"bound fused_srp_spectrum [M=12]: {b_ms:.4f} ms by {by}", flush=True)
+    b_ms, by = k10_bound("fused_srp_spectrum [M=12]", y2, G, M)
     # the library call: the einsum path on the same whitened spectrum, as phase 13's
     Yd = torch.movedim(torch.movedim(analysis(xd, scfg.stft), -3, -1), -3, 0)
     lib_ms = timed_ms(srp_angle_spectrum, cr.phat_whiten(Yd), torch.as_tensor(srp_steering_grid(scfg, geom), device=dev),

@@ -1,11 +1,16 @@
 // The flagship's two CUDA kernels and their C launchers.
 //
-// fused_enhance_kernel replaces distantspeech_tpu/ops/pallas_enhance.py
+// fused_enhance_rows_kernel replaces distantspeech_tpu/ops/pallas_enhance.py
 // fused_enhance (_enhance_kernel + its Nyquist companion): spectra in,
-// gained spectra out, one thread per (utterance, bin) lane looping over
-// every frame with the lane's state in registers.  Inputs are laid out with
-// the lane index b*F + k contiguous, so neighbouring threads read
-// neighbouring addresses.
+// gained spectra out, a lane per (utterance, bin) looping over every frame
+// with the lane's state in registers.  Inputs are laid out with the lane
+// index b*F + k contiguous.  Up to 16 mics a group of threads runs a lane,
+// the rows of its covariance (then factors) split between them (below, by
+// the kernel): at the flagship size (B = 64, F = 129) a thread pair a lane,
+// 129 blocks.  The first design ran one thread a lane (65 blocks of 128, 1.226
+// ms); the frame-parallel layout of K1 (4 threads each applying every
+// frame's update) repeated Bennett's update on every thread and ran slower
+// (PERF.md keeps every layout's time).
 //
 // fused_enhance_full_kernel replaces pallas_enhance.py fused_enhance_full
 // (_mega_kernel + its Nyquist companion): waveform [B, M, S] in, waveform
@@ -42,9 +47,10 @@
 // operations (it moves 147 MB and does ~5.5e9 float32 operations with its
 // transforms as real FFTs), the lane kernel by bytes (314 MB of spectra in
 // and out against ~4e9 operations).  Neither design reaches its bound: the
-// lane recursion is a serial chain of ~2.5 us a frame per lane (one block
+// lane recursion is a serial chain of frames (the mega kernel's one block
 // per utterance leaves 64 of 132 SMs busy at B = 64), and the M = 8 lane
-// state takes up to 255 registers a thread.  The mega kernel's first design
+// state takes up to 255 registers a thread; chip_smoke.py prints the lane
+// kernel's chain floor beside its bound.  The mega kernel's first design
 // computed each bin's DFT as a direct sum against cos/sin tables and took
 // 9.516 ms on an H100 at 700 W (PERF.md's kernel table keeps both
 // times).
@@ -56,7 +62,8 @@
 namespace {
 
 constexpr int kLaneThreads = 128;
-constexpr int kMemLanes = 32;  // lanes a block of the lane kernel above 8 mics
+constexpr int kLaneGroup8 = 2;  // threads a lane of the lane kernel up to 8 mics
+constexpr int kMemLanes = 32;  // lanes a block of the lane kernel above 16 mics
 constexpr size_t kMaxSmemBytes = 232448;  // a Hopper block's dynamic shared memory with the opt-in
 constexpr int kFullThreads = 256;   // the mega kernel: kFullLaneWarps lane warps, the rest FFT warps
 constexpr int kFullLaneWarps = 5;
@@ -71,33 +78,380 @@ __device__ __forceinline__ void load_steering(const float* __restrict__ steer, i
   }
 }
 
+// ---- K2 up to 16 mics: G threads a lane, its rows split -------------------------
+
+// 1 / x for a normal x > 0 without IEEE division's slow-path branch (which
+// splits the code it sits in for the scheduler): MUFU.RCP and one Newton
+// step, within an ulp of 1.f / x.
+__device__ __forceinline__ float rcp_nr(float x) {
+  const float r = __fdividef(1.f, x);
+  return fmaf(r, fmaf(-x, r, 1.f), r);
+}
+
+// Row i of a lane lies with thread row_owner(i, G) of its group: slot q holds
+// rows G q .. G q + G - 1, on the threads in reverse order where q is even
+// and in order where q is odd, so that each thread's rows of the lower
+// triangle hold an even share of its entries (M = 8: rows 1, 2, 5, 6 and
+// 0, 3, 4, 7 at G = 2, 14 entries each; 3, 4 / 2, 5 / 1, 6 / 0, 7 at G = 4,
+// 7 each).
+__host__ __device__ constexpr int row_owner(int i, int G) { return (i / G) & 1 ? i % G : G - 1 - i % G; }
+
+// One thread's share of a lane: its rows' strictly lower entries (column <
+// row; R in the warmup, the LDL^H factors after the handover), every row's
+// diagonal (R's, or the factors' D), its rows' held u, and the lane's
+// scalars (every thread of the group holds them alike).
+template <int M, int G>
+struct RowLane {
+  static constexpr int Q = (M + G - 1) / G;  // slots
+  float Rr[Q][M], Ri[Q][M], D[M], Ur[Q], Ui[Q];
+  float S, Smin, Stmp, P, Lam, Gh, Gam, Ld;
+};
+
+// The lane recursion of lane_frame on a group of G threads, each on its
+// rows.  Every row-wise step takes a row's terms in the plain version's
+// order: the covariance update, the LDL^H factorisation (row j's diagonal
+// and factors go from its owner to the group by shuffle before the rows
+// below take their column-j terms), Bennett's update (p = w_j by shuffle,
+// the column's scalars on every thread, each row below j updated by its
+// owner) and the forward solve (v_k by shuffle as it settles).  The back
+// solve sums each u_i's terms by owner, and the group's shares meet by
+// __shfl_xor_sync (the same sum on every thread); a^H u and u^H z likewise.
+// MCRA, the gate, the chunk bookkeeping and the gain run on every thread
+// alike.  Where a slot's row lies at or above the column in hand, its
+// thread's step writes only storage no later step reads (a spent w or v, a
+// factor's column at or past its row), so the loops run without a test of
+// the row.  A warp runs an update where any of its lanes' gates is open
+// (its shuffles need the whole warp), and a closed lane keeps its state.
+// The reciprocals (the factorisation's D_j, Bennett's d'_j, the output's
+// |a^H u|^2, the gain's two divisors) are rcp_nr's: IEEE division cost
+// 13% (PERF.md); MCRA's S / Smin stays IEEE, since a threshold reads it.
 // z [T, M, 2, B*F], sf [T, B*F], steer [M, 2, F] -> y [T, 2, B*F]
-template <int M>
-__global__ void __launch_bounds__(kLaneThreads) fused_enhance_kernel(const float* __restrict__ z,
-                                                                     const float* __restrict__ sf,
-                                                                     const float* __restrict__ steer,
-                                                                     float* __restrict__ y, int B, int F, int T,
-                                                                     LaneParams lp) {
+template <int M, int G>
+__global__ void __launch_bounds__(kLaneThreads) fused_enhance_rows_kernel(const float* __restrict__ z,
+                                                                          const float* __restrict__ sf,
+                                                                          const float* __restrict__ steer,
+                                                                          float* __restrict__ y, int B, int F, int T,
+                                                                          LaneParams lp) {
+  constexpr int Q = RowLane<M, G>::Q;
   const int NL = B * F;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= NL) return;
+  const int gid = blockIdx.x * kLaneThreads + threadIdx.x;
+  const int h = threadIdx.x & (G - 1);
+  const int base = (threadIdx.x & 31) & ~(G - 1);
+  const bool live = gid / G < NL;
+  const int lane = live ? gid / G : NL - 1;  // a group past the end runs the last lane and writes nothing
   const int k = lane % F;
   const BinKind bk = bin_kind(k, F);
-  float ar[M], ai[M];
-  load_steering<M>(steer, F, k, ar, ai);
-  Lane<M> s;
-  lane_init<M>(M, s);
-  for (int t = 0; t < T; ++t) {
+  // this thread's row of slot q (M where M leaves it none)
+  auto row = [&](int q) { return min(G * q + (q & 1 ? h : G - 1 - h), M); };
+  auto from_owner = [&](float v, int i) { return __shfl_sync(0xffffffffu, v, base + row_owner(i, G)); };
+  auto group_sum = [](float v) {
+#pragma unroll
+    for (int o = 1; o < G; o <<= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+  };
+  // element r of a per-row vector every thread holds, r a row of slot q
+  auto pick = [](const float (&v)[M], int q, int r) {
+    float x = v[G * q];
+#pragma unroll
+    for (int o = 1; o < G; ++o)
+      if (G * q + o < M && r == G * q + o) x = v[G * q + o];
+    return x;
+  };
+  auto set = [](float& x, float v, bool c) { x = c ? v : x; };
+  // loading(): diag + rel_diag tr(R) / M from the diagonal every thread holds
+  auto loading_of = [&](const float (&d)[M]) {
+    if (lp.rel_diag_m == 0.f) return lp.diag;
+    float tr = d[0];
+#pragma unroll
+    for (int i = 1; i < M; ++i) tr = tr + d[i];
+    return lp.diag + lp.rel_diag_m * tr;
+  };
+
+  float ar[Q], ai[Q];  // its rows' steering
+  RowLane<M, G> s;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int r = row(q);
+    ar[q] = r < M ? steer[(2 * r) * F + k] : 0.f;
+    ai[q] = r < M ? steer[(2 * r + 1) * F + k] : 0.f;
+    s.Ur[q] = s.Ui[q] = 0.f;
+#pragma unroll
+    for (int c = 0; c < M; ++c) s.Rr[q][c] = s.Ri[q][c] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) s.D[i] = 0.f;
+  s.S = s.Smin = s.Stmp = s.P = s.Lam = 0.f;
+  s.Gh = s.Gam = 1.f;
+  s.Ld = 0.f;
+
+  // LDL^H of A + load I (A: the rows Ar / Ai and the diagonal Ad) into the
+  // rows Lr / Li, Dn and Dinv; in place where L is A
+  auto factor = [&](float (&Ar)[Q][M], float (&Ai)[Q][M], const float (&Ad)[M], float load, float (&Lr)[Q][M],
+                    float (&Li)[Q][M], float (&Dn)[M], float (&Dinv)[M]) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      const int qj = j / G;
+      float d = Ad[j] + load;  // row j's owner: its diagonal's terms
+#pragma unroll
+      for (int c = 0; c < j; ++c) d = d - (Lr[qj][c] * Lr[qj][c] + Li[qj][c] * Li[qj][c]) * Dn[c];
+      d = from_owner(d, j);
+      Dn[j] = d;
+      Dinv[j] = rcp_nr(d);
+      float lr[M], li[M];  // row j's factors
+#pragma unroll
+      for (int c = 0; c < j; ++c) {
+        lr[c] = from_owner(Lr[qj][c], j);
+        li[c] = from_owner(Li[qj][c], j);
+      }
+#pragma unroll
+      for (int q = qj; q < Q; ++q) {
+        float sr = Ar[q][j], si = Ai[q][j];
+#pragma unroll
+        for (int c = 0; c < j; ++c) {
+          const float2 t = cmul(Lr[q][c], Li[q][c], lr[c], -li[c]);  // L[i][c] conj(L[j][c])
+          sr = sr - t.x * Dn[c];
+          si = si - t.y * Dn[c];
+        }
+        Lr[q][j] = sr * Dinv[j];
+        Li[q][j] = si * Dinv[j];
+      }
+    }
+  };
+
+  // u = L^-H D^-1 L^-1 a into the held u where c
+  auto solve = [&](const float (&Lr)[Q][M], const float (&Li)[Q][M], const float (&Dinv)[M], bool c) {
+    float vr[M], vi[M], accr[Q], acci[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      accr[q] = ar[q];
+      acci[q] = ai[q];
+    }
+#pragma unroll
+    for (int kk = 0; kk < M; ++kk) {  // forward: v_kk settles on its owner, then goes to the group
+      vr[kk] = from_owner(accr[kk / G], kk);
+      vi[kk] = from_owner(acci[kk / G], kk);
+#pragma unroll
+      for (int q = kk / G; q < Q; ++q) {
+        const float2 t = cmul(Lr[q][kk], Li[q][kk], vr[kk], vi[kk]);
+        accr[q] = accr[q] - t.x;
+        acci[q] = acci[q] - t.y;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      vr[i] = vr[i] * Dinv[i];
+      vi[i] = vi[i] * Dinv[i];
+    }
+    float pr[M], pi[M];  // back: this thread's rows' terms of each u_i, conj(L[r][i]) u_r
+#pragma unroll
+    for (int i = 0; i < M; ++i) pr[i] = pi[i] = 0.f;
+#pragma unroll
+    for (int q = Q - 1; q >= 0; --q) {
+      const int r = row(q);
+      float ur = 0.f, ui = 0.f;  // its row's u
+#pragma unroll
+      for (int o = G - 1; o >= 0; --o) {  // the slot's rows from the last: u_i, then row i's terms below it
+        const int i = G * q + o;
+        if (i >= M) continue;
+        const float uir = vr[i] - group_sum(pr[i]), uii = vi[i] - group_sum(pi[i]);
+        set(ur, uir, r == i);
+        set(ui, uii, r == i);
+#pragma unroll
+        for (int i2 = G * q; i2 < i; ++i2) {
+          const float2 t = cmul(Lr[q][i2], -Li[q][i2], uir, uii);
+          set(pr[i2], pr[i2] + t.x, r == i);
+          set(pi[i2], pi[i2] + t.y, r == i);
+        }
+      }
+      if (G * q + G > M && r >= M) continue;  // M leaves this thread no row in the last slot
+      set(s.Ur[q], ur, c);
+      set(s.Ui[q], ui, c);
+#pragma unroll
+      for (int i = 0; i < G * q; ++i) {
+        const float2 t = cmul(Lr[q][i], -Li[q][i], ur, ui);
+        pr[i] = pr[i] + t.x;
+        pi[i] = pi[i] + t.y;
+      }
+    }
+  };
+
+  float zr[M], zi[M], sft = 0.f;  // frame t's inputs; frame t + 1's loaded before frame t's chain
+  auto load = [&](int t, float (&xr)[M], float (&xi)[M], float& sv) {
     const float* zt = z + (size_t)t * M * 2 * NL;
-    float zr[M], zi[M];
 #pragma unroll
     for (int m = 0; m < M; ++m) {
-      zr[m] = zt[(size_t)(2 * m) * NL + lane];
-      zi[m] = zt[(size_t)(2 * m + 1) * NL + lane];
+      xr[m] = zt[(size_t)(2 * m) * NL + lane];
+      xi[m] = zt[(size_t)(2 * m + 1) * NL + lane];
     }
-    const float2 out = lane_frame<M>(s, zr, zi, ar, ai, sf[(size_t)t * NL + lane], t, bk, lp);
-    y[(size_t)(2 * t) * NL + lane] = out.x;
-    y[(size_t)(2 * t + 1) * NL + lane] = out.y;
+    sv = sf[(size_t)t * NL + lane];
+  };
+  if (T > 0) load(0, zr, zi, sft);
+  int chunk = 0, pos = 0;  // frame t = chunk t_chunk + pos
+  for (int t = 0; t < T; ++t) {
+    float nzr[M], nzi[M], nsf = 0.f;
+    if (t + 1 < T) load(t + 1, nzr, nzi, nsf);
+    const bool steady = lp.rank1 && chunk >= lp.warm_chunks;
+    if (steady && lp.refresh && pos == 0 && chunk >= lp.warm_chunks + 1) {
+      // re-anchor: R = L D L^H - baked I in place (the diagonal first,
+      // then the columns from the last, row j's factors from its owner),
+      // then the factors of R + fresh load I
+      float nd[M], acc[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int r = row(q);
+        acc[q] = pick(s.D, q, r);
+#pragma unroll
+        for (int c = 0; c < G * q + G - 1 && c < M; ++c) {
+          const float t = acc[q] + (s.Rr[q][c] * s.Rr[q][c] + s.Ri[q][c] * s.Ri[q][c]) * s.D[c];
+          if (c < G * q)
+            acc[q] = t;
+          else
+            set(acc[q], t, c < r);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < M; ++i) nd[i] = from_owner(acc[i / G], i);
+#pragma unroll
+      for (int j = M - 2; j >= 0; --j) {
+        const int qj = j / G;
+        float lr[M], li[M];
+#pragma unroll
+        for (int c = 0; c < j; ++c) {
+          lr[c] = from_owner(s.Rr[qj][c], j);
+          li[c] = from_owner(s.Ri[qj][c], j);
+        }
+#pragma unroll
+        for (int q = qj; q < Q; ++q) {
+          float sr = s.Rr[q][j] * s.D[j], si = s.Ri[q][j] * s.D[j];
+#pragma unroll
+          for (int c = 0; c < j; ++c) {
+            const float2 tt = cmul(s.Rr[q][c], s.Ri[q][c], lr[c], -li[c]);
+            sr = sr + tt.x * s.D[c];
+            si = si + tt.y * s.D[c];
+          }
+          s.Rr[q][j] = sr;
+          s.Ri[q][j] = si;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < M; ++i) s.D[i] = nd[i] - s.Ld;
+      const float load_v = loading_of(s.D);
+      float Dn[M], Dinv[M];
+      factor(s.Rr, s.Ri, s.D, load_v, s.Rr, s.Ri, Dn, Dinv);
+#pragma unroll
+      for (int i = 0; i < M; ++i) s.D[i] = Dn[i];
+      s.Ld = load_v;
+    }
+    float lam, sr;
+    const float p = mcra_frame(s, t, zr[0] * zr[0] + zi[0] * zi[0], sft, bk, lp.mc, lam, sr);
+    bool upd = p < lp.p_vad;
+    if (lp.vad_guard) upd = upd && sr <= lp.mc.delta_s;
+    if (__any_sync(0xffffffffu, upd)) {
+      if (steady) {
+        // Bennett's update of the factors, each row below column j by its owner
+        float wr[Q], wi[Q], Dinv[M];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          wr[q] = pick(zr, q, row(q));
+          wi[q] = pick(zi, q, row(q));
+        }
+        float sig = lp.ba_v;
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+          const int qj = j / G;
+          const float pr = from_owner(wr[qj], j), pi = from_owner(wi[qj], j), d = s.D[j];
+          const float dj = d + sig * (pr * pr + pi * pi);
+          const float r = rcp_nr(dj);
+          const float srr = sig * r;
+          const float br = srr * pr, bi = -(srr * pi);  // b = sigma conj(p) / d'
+          sig = sig * d * r;
+          set(s.D[j], lp.alpha_v * dj, upd);
+          Dinv[j] = r * lp.inv_alpha_v;
+#pragma unroll
+          for (int q = qj; q < Q; ++q) {  // (slot qj's row j or above: its w is spent)
+            const float lr = s.Rr[q][j], li = s.Ri[q][j];
+            float2 tt = cmul(pr, pi, lr, li);
+            wr[q] = wr[q] - tt.x;
+            wi[q] = wi[q] - tt.y;
+            tt = cmul(br, bi, wr[q], wi[q]);
+            set(s.Rr[q][j], lr + tt.x, upd);
+            set(s.Ri[q][j], li + tt.y, upd);
+          }
+        }
+        solve(s.Rr, s.Ri, Dinv, upd);
+        if (lp.refresh) set(s.Ld, lp.alpha_v * s.Ld, upd);
+      } else {
+        // the covariance's rank-1 update (every diagonal, this thread's rows),
+        // then u from the LDL^H of R + load I
+#pragma unroll
+        for (int i = 0; i < M; ++i) set(s.D[i], lp.alpha_v * s.D[i] + lp.beta_v * (zr[i] * zr[i] + zi[i] * zi[i]), upd);
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const int r = row(q);
+          const float zrr = pick(zr, q, r), zir = pick(zi, q, r);
+#pragma unroll
+          for (int c = 0; c < G * q + G - 1 && c < M; ++c) {
+            const float outr = zrr * zr[c] + zir * zi[c], outi = zir * zr[c] - zrr * zi[c];
+            set(s.Rr[q][c], lp.alpha_v * s.Rr[q][c] + lp.beta_v * outr, upd);
+            set(s.Ri[q][c], lp.alpha_v * s.Ri[q][c] + lp.beta_v * outi, upd);
+          }
+        }
+        float Lr[Q][M], Li[Q][M], Dn[M], Dinv[M];
+        factor(s.Rr, s.Ri, s.D, loading_of(s.D), Lr, Li, Dn, Dinv);
+        solve(Lr, Li, Dinv, upd);
+      }
+    }
+    // ---- y = w^H z with w = u / (a^H u): this thread's rows' terms, then the group's
+    float dr = 0.f, di = 0.f, nr = 0.f, ni = 0.f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {  // (an odd M's missing row: a = u = 0)
+      const int r = row(q);
+      float2 tt = cmul(ar[q], -ai[q], s.Ur[q], s.Ui[q]);  // conj(a) u
+      dr = dr + tt.x;
+      di = di + tt.y;
+      tt = cmul(s.Ur[q], -s.Ui[q], pick(zr, q, r), pick(zi, q, r));  // conj(u) z
+      nr = nr + tt.x;
+      ni = ni + tt.y;
+    }
+    dr = group_sum(dr);
+    di = group_sum(di);
+    nr = group_sum(nr);
+    ni = group_sum(ni);
+    const float rmag = rcp_nr(dr * dr + di * di);
+    const float2 ym = cmul(nr, ni, dr * rmag, di * rmag);
+    // omlsa_gain, its two divisions by rcp_nr
+    const float gamma = (ym.x * ym.x + ym.y * ym.y) * rcp_nr(fmaxf(lam, 1e-10f));
+    const float xi_ = lp.alpha_xi * (s.Gh * s.Gh) * s.Gam + lp.one_m_alpha_xi * fmaxf(gamma - 1.f, 0.f);
+    const float G_H1 = xi_ * rcp_nr(1.f + xi_);
+    const float logG = p * logf(fmaxf(G_H1, 1e-30f)) + (1.f - p) * lp.log_gmin;
+    const float Gn = fminf(fmaxf(expf(logG), lp.gmin), 1.f);
+    s.Gh = G_H1;
+    s.Gam = gamma;
+    const float2 out = make_float2(ym.x * Gn, ym.y * Gn);
+    if (live && h == 0) {
+      y[(size_t)(2 * t) * NL + lane] = out.x;
+      y[(size_t)(2 * t + 1) * NL + lane] = out.y;
+    }
+    if (lp.rank1 && chunk == lp.warm_chunks - 1 && pos == lp.t_chunk - 1) {  // handover: factor in place
+      const float load_v = loading_of(s.D);
+      float Dn[M], Dinv[M];
+      factor(s.Rr, s.Ri, s.D, load_v, s.Rr, s.Ri, Dn, Dinv);
+#pragma unroll
+      for (int i = 0; i < M; ++i) s.D[i] = Dn[i];
+      if (lp.refresh) s.Ld = load_v;
+    }
+    if (++pos == lp.t_chunk) {
+      pos = 0;
+      ++chunk;
+    }
+    if (t + 1 < T) {
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        zr[m] = nzr[m];
+        zi[m] = nzi[m];
+      }
+      sft = nsf;
+    }
   }
 }
 
@@ -299,8 +653,8 @@ __global__ void __launch_bounds__(kFullThreads, 1) fused_enhance_full_kernel(
   }
 }
 
-// The lane kernel above 8 mics (M a run-time argument): one thread a lane
-// as fused_enhance_kernel, the same lane functions on a memory lane
+// The lane kernel above 16 mics (M a run-time argument): one thread a lane
+// running enhance_lane.cuh's lane functions on a memory lane
 // (enhance_lane.cuh: mem_fields(M) floats) in shared memory, kMemLanes
 // lanes a block, or where that does not fit (M > 27), in the global scratch
 // gstate [mem_fields(M)][B*F].
@@ -335,6 +689,20 @@ __global__ void __launch_bounds__(kMemLanes) fused_enhance_mem_kernel(const floa
 }
 
 bool mem_lanes_in_smem(int M) { return sizeof(float) * (size_t)mem_fields(M) * kMemLanes <= kMaxSmemBytes; }
+
+// Threads a lane of the lane kernel at M mics (2 to 16; the state spills
+// from registers above 8).
+constexpr int lane_group(int M) { return M <= 8 ? kLaneGroup8 : 4; }
+
+template <int M>
+cudaError_t launch_lanes(const float* z, const float* sf, const float* steer, float* y, int B, int F, int T,
+                         const LaneParams& lp, cudaStream_t st) {
+  constexpr int G = lane_group(M);
+  const long long threads = (long long)B * F * G;
+  fused_enhance_rows_kernel<M, G><<<(int)((threads + kLaneThreads - 1) / kLaneThreads), kLaneThreads, 0, st>>>(
+      z, sf, steer, y, B, F, T, lp);
+  return cudaGetLastError();
+}
 
 // The mega kernel's general variant, for the shapes the power-of-two one
 // does not take: n_fft any multiple of 256 (N and M run-time arguments),
@@ -550,32 +918,40 @@ cudaError_t launch_full_any(const float* x, const float* tabs, const float* stee
 extern "C" {
 
 // Floats of global scratch the lane kernel needs at M mics over B*F lanes:
-// 0 up to 8 mics (the state in registers) and where the memory lanes fit in
+// 0 up to 16 mics (the state in registers) and where the memory lanes fit in
 // shared memory, else mem_fields(M) a lane; -1 for M < 2.
 long long fused_enhance_scratch_floats(int M, int B, int F) {
   if (M < 2) return -1;
-  return M <= 8 || mem_lanes_in_smem(M) ? 0 : (long long)mem_fields(M) * B * F;
+  return M <= 16 || mem_lanes_in_smem(M) ? 0 : (long long)mem_fields(M) * B * F;
 }
 
-// M (mics) 2 or more; above 8 the state lives in shared memory or, where
-// that does not fit, in scratch (fused_enhance_scratch_floats).
+// M (mics) 2 or more: up to 16 lane_group(M) threads a lane, its rows
+// split; above 16 the state lives in shared memory or, where that does not
+// fit, in scratch (fused_enhance_scratch_floats).
 cudaError_t fused_enhance_launch(const void* z, const void* sf, const void* steer, void* y, void* scratch, int M,
                                  int B, int F, int T, const void* params, void* stream) {
   const LaneParams lp = *static_cast<const LaneParams*>(params);
-  const int blocks = (B * F + kLaneThreads - 1) / kLaneThreads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* zf = static_cast<const float*>(z);
   const float* sff = static_cast<const float*>(sf);
   const float* sv = static_cast<const float*>(steer);
   float* yf = static_cast<float*>(y);
   switch (M) {
-    case 2: fused_enhance_kernel<2><<<blocks, kLaneThreads, 0, st>>>(zf, sff, sv, yf, B, F, T, lp); break;
-    case 3: fused_enhance_kernel<3><<<blocks, kLaneThreads, 0, st>>>(zf, sff, sv, yf, B, F, T, lp); break;
-    case 4: fused_enhance_kernel<4><<<blocks, kLaneThreads, 0, st>>>(zf, sff, sv, yf, B, F, T, lp); break;
-    case 5: fused_enhance_kernel<5><<<blocks, kLaneThreads, 0, st>>>(zf, sff, sv, yf, B, F, T, lp); break;
-    case 6: fused_enhance_kernel<6><<<blocks, kLaneThreads, 0, st>>>(zf, sff, sv, yf, B, F, T, lp); break;
-    case 7: fused_enhance_kernel<7><<<blocks, kLaneThreads, 0, st>>>(zf, sff, sv, yf, B, F, T, lp); break;
-    case 8: fused_enhance_kernel<8><<<blocks, kLaneThreads, 0, st>>>(zf, sff, sv, yf, B, F, T, lp); break;
+    case 2: return launch_lanes<2>(zf, sff, sv, yf, B, F, T, lp, st);
+    case 3: return launch_lanes<3>(zf, sff, sv, yf, B, F, T, lp, st);
+    case 4: return launch_lanes<4>(zf, sff, sv, yf, B, F, T, lp, st);
+    case 5: return launch_lanes<5>(zf, sff, sv, yf, B, F, T, lp, st);
+    case 6: return launch_lanes<6>(zf, sff, sv, yf, B, F, T, lp, st);
+    case 7: return launch_lanes<7>(zf, sff, sv, yf, B, F, T, lp, st);
+    case 8: return launch_lanes<8>(zf, sff, sv, yf, B, F, T, lp, st);
+    case 9: return launch_lanes<9>(zf, sff, sv, yf, B, F, T, lp, st);
+    case 10: return launch_lanes<10>(zf, sff, sv, yf, B, F, T, lp, st);
+    case 11: return launch_lanes<11>(zf, sff, sv, yf, B, F, T, lp, st);
+    case 12: return launch_lanes<12>(zf, sff, sv, yf, B, F, T, lp, st);
+    case 13: return launch_lanes<13>(zf, sff, sv, yf, B, F, T, lp, st);
+    case 14: return launch_lanes<14>(zf, sff, sv, yf, B, F, T, lp, st);
+    case 15: return launch_lanes<15>(zf, sff, sv, yf, B, F, T, lp, st);
+    case 16: return launch_lanes<16>(zf, sff, sv, yf, B, F, T, lp, st);
     default: {
       if (M < 2) return cudaErrorInvalidValue;
       const bool in_smem = mem_lanes_in_smem(M);
@@ -585,9 +961,9 @@ cudaError_t fused_enhance_launch(const void* z, const void* sf, const void* stee
       if (e != cudaSuccess) return e;
       fused_enhance_mem_kernel<<<(B * F + kMemLanes - 1) / kMemLanes, kMemLanes, smem, st>>>(
           zf, sff, sv, yf, in_smem ? nullptr : static_cast<float*>(scratch), M, B, F, T, lp);
+      return cudaGetLastError();
     }
   }
-  return cudaGetLastError();
 }
 
 // M (mics) 2 or more; N (n_fft) a multiple of 256, as the JAX kernel takes.

@@ -8,10 +8,12 @@ replace its Pallas kernels:
   and its Nyquist companion).  The windowed DFT, the 3-tap MCRA
   cross-bin smoothing ``Sf`` and the inverse DFT are matrix products
   outside the kernel, as in the JAX package; the kernel ``enhance_lanes``
-  runs one thread per (utterance, bin) lane, looping over every frame with
-  the lane's state in registers: MCRA, the covariance gate (``p < p_vad``,
-  and ``S/Smin <= delta_s`` with ``vad_guard``), the MVDR update and solve
-  and the OM-LSA gain.
+  runs a lane per (utterance, bin), looping over every frame with the
+  lane's state in registers: MCRA, the covariance gate (``p < p_vad``, and
+  ``S/Smin <= delta_s`` with ``vad_guard``), the MVDR update and solve and
+  the OM-LSA gain.  Up to 16 mics a thread pair (above 8 mics 4 threads)
+  runs a lane, the rows of its covariance (then its factors) split between
+  them; above, one thread a lane on a memory lane.
 - ``fused_enhance_full`` replaces ``pallas_enhance.fused_enhance_full``
   (``_mega_kernel`` and its Nyquist companion): waveform [B, M, S] in,
   waveform [B, S] out, one block per utterance.  Framing, the windowed
@@ -285,7 +287,7 @@ def _library() -> ctypes.CDLL:
 def enhance_lanes(Z, Sf, steer_planes, cfg, t_chunk: int, inv_mode: str = "ldl") -> torch.Tensor:
     """The ``fused_enhance`` kernel: per-lane recursion over spectra
     Z [T, M, 2, B, F] and Sf [T, B, F] -> gained spectra [T, 2, B, F].
-    Any M >= 2: above 8 mics the lane states live in shared memory, or in a
+    Any M >= 2: above 16 mics the lane states live in shared memory, or in a
     global scratch where they do not fit (M > 27).
     CPU tensors run ``enhance_lanes_plain``."""
     if Z.device.type == "cpu":

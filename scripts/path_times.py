@@ -19,8 +19,8 @@ kernel) at B=8 x 8 mics x 4 s.  The kernels alone: K6 (``fused_kws``) on
 the kws inputs of mics 0/1 of B3's echo scene; K1 (``fused_mvdr_scan``),
 with and without the OM-LSA gain, on B1's spectra, gate and MCRA tracks,
 and with the gain at 12, 16 and 32 mics (``K1 M=12`` ...); K2
-(``fused_enhance``'s lane kernel) at 12 and 16 mics (``K2 M=12`` ...), all
-at B=64 x 4 s; K10 (``fused_srp_spectrum``) on B6's whitened spectrum and
+(``fused_enhance``'s lane kernel) on the flagship's spectra at 8 mics
+(``K2``) and at 12 and 16 (``K2 M=12`` ...), all at B=64 x 4 s; K10 (``fused_srp_spectrum``) on B6's whitened spectrum and
 at 12 and 16 mics (``K10 M=12`` ...), B=8 x 4 s; as ``chip_smoke.py``
 builds them.  ``--paths`` picks some of
 them by name (default: the paths, not the kernels alone).  Each is timed
@@ -130,6 +130,7 @@ def main() -> int:
         "K1": lambda: k1(8),
         "K1 no gain": lambda: k1(8, gain=False),
         **{f"K1 M={m}": (lambda m=m: k1(m)) for m in (12, 16, 32)},
+        "K2": lambda: k2(8),
         **{f"K2 M={m}": (lambda m=m: k2(m)) for m in (12, 16)},
         "K10": lambda: k10(8),
         **{f"K10 M={m}": (lambda m=m: k10(m)) for m in (12, 16)},

@@ -1,7 +1,7 @@
 """K5 (csrc/flms.cu, core and postfilter), K8 (csrc/fdgsc.cu), K7
 (csrc/aec.cu), K4 (csrc/enhance.cu's mega kernel) and K2 (its lane kernel),
-K9 (csrc/sgsc.cu), K1 (csrc/mvdr.cu), K6 (csrc/kws.cu) and the MCRA lane
-kernel (csrc/mcra.cu) rehearsed on the CPU: each source compiled
+K9 (csrc/sgsc.cu), K1 (csrc/mvdr.cu), K6 (csrc/kws.cu), K10 (csrc/srp.cu)
+and the MCRA lane kernel (csrc/mcra.cu) rehearsed on the CPU: each source compiled
 with g++ against the thread-and-barrier shim in ``tests/torch_cuda_shim``,
 launched through its C launcher on CPU buffers and held to the kernel's
 plain version at 1e-4 of max|out| (bm likewise, p absolutely).  K5 and K8
@@ -19,8 +19,15 @@ at 512 with 2, 3 and 4 (lane states in registers) and 6 and 8 (in shared
 memory), and at 1024 with 2 (shared memory) and 8 (a global scratch); its
 general variant (mixed-radix transforms) at n_fft 768 with 4 mics, 1280
 with 3, 2048 with 2 and 10 (its spectra in a global scratch too) and 256
-with 12 (memory lanes); K2 the same way at 256 with 12 mics (memory lanes
-in shared memory) and 28 (in a global scratch).  K9
+with 12 (memory lanes); K2 (a thread pair a lane, its rows split) at
+n_fft 64 with 2, 3, 4 and 8 mics over 74 frames in chunks of 6 (the
+handover after frame 65, a re-anchor at 72), the gate changing from frame
+to frame, in LDL^H mode at 8, and at n_fft 256 over K4's frames at 12
+mics (4 threads a lane, one utterance) and 28 (memory lanes in a global
+scratch).  K10 runs 45 rows x 5 bins at 360
+angles with 2, 3, 8 and 12 mics (one, two and, at 12, 2 x 2 k-steps a bin)
+and 37 angles at 3 mics (4-byte copies of the grid), through the shim's
+warp-level mma.sync m16n8k8 TF32.  K9
 runs B=2 x 16 frames at Lf=128 and 64 in the default config and with
 McSpp's MCRA window cut to L=3, so that p moves.  The MCRA lane kernel runs
 20 frames of bursty power at F=129 and 257 with L=3, with and without
@@ -46,8 +53,11 @@ import rehearse  # noqa: E402
 
 TOL = 1e-4
 # the child processes, one per group of cases, run at once
+# (awaited in this order, each with its own time limit: the last, K2's
+# 4-thread lanes, shuffles most and slows most when the machine is busy)
 GROUPS = (("k5", "k8", "mcra"), ("k7",), ("k4-rank1-256", "k4-ldl-256"), ("k4-rank1-512", "k4-rank1-1024"), ("k9",),
-          ("k1",), ("k6", "k2"), ("k4-rank1-768", "k4-rank1-1280", "k4-rank1-2048"))
+          ("k1",), ("k6", "k10"), ("k2-rank1-256-m28",), ("k2-rank1-64", "k2-ldl-64"),
+          ("k4-rank1-768", "k4-rank1-1280", "k4-rank1-2048"), ("k2-rank1-256-m12",))
 
 
 @pytest.fixture(scope="module")
@@ -85,7 +95,7 @@ def test_kernel_source_matches_plain_version(gaps, case):
     assert g.get("bm", 0.0) < TOL, f"{case}: bm {g.get('bm'):.3e} of max|bm| from the plain version"
     if case.endswith(("-m16", "-m20", "-m28")) or case == "k4-rank1-2048-m10":
         assert g["scratch_floats"] > 0, f"{case}: expected the block's buffers in a global scratch"
-    if case.startswith(("k1",)):
+    if case.startswith(("k1", "k10")):
         return
     if case.startswith("k6"):
         assert g["cleaned"] > 0.1, f"{case}: the cleaner never acted ({g['cleaned']:.3e}), so the FIFO did not wrap"
@@ -106,6 +116,8 @@ def test_kernel_source_matches_plain_version(gaps, case):
             assert g["mics_per_block"] < 9, f"{case}: expected more than one block an utterance"
     else:
         assert g["open_steady"] > 0, f"{case}: no covariance update after the warmup, so the Bennett path did not run"
+        if case.startswith("k2"):
+            assert g["gate_changes"] > 0, f"{case}: the gate never changed, so no held u came from an earlier frame"
 
 
 def test_shim_refuses_what_the_card_refuses(libs):
@@ -168,3 +180,27 @@ def test_launchers_refuse_shapes_just_outside_their_ranges(libs):
     refused, scratch, k4_bad, k4_no_scratch, k8_bad, k9_bad = (json.loads(v) for v in run.stdout.strip().split(";"))
     assert refused == [-1] * 3 and scratch[0] == 0 and all(n > 0 for n in scratch[1:])
     assert all(e != 0 for e in k4_bad + k4_no_scratch + k8_bad + k9_bad)
+
+
+def test_k2_and_k10_launchers_refuse_what_they_do_not_take(libs):
+    """K10's launcher refuses fewer than 2 mics and an empty row, bin or
+    angle range, and K2's fewer than 2 mics and, where its memory lanes
+    need one (28 mics), a missing scratch, before any launch."""
+    code = (
+        "import ctypes\n"
+        f"srp, enh = (ctypes.CDLL(p) for p in {[str(libs[n]) for n in ('srp', 'enhance')]!r})\n"
+        "params = (ctypes.c_float * 64)()\n"
+        "buf = (ctypes.c_float * 8)()\n"
+        "a, pp = ctypes.addressof(buf), ctypes.addressof(params)\n"
+        "k10 = srp.fused_srp_launch\n"
+        "k10.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]\n"
+        "k2 = enh.fused_enhance_launch\n"
+        "k2.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2\n"
+        "print([k10(a, a, a, r, f, m, th, None) for r, f, m, th in ((1, 1, 1, 1), (0, 1, 2, 1), (1, 0, 2, 1),"
+        " (1, 1, 2, 0))],"
+        " [k2(a, a, a, a, None, m, 1, 1, 1, pp, None) for m in (1, 28)], sep=';')\n"
+    )
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=60)
+    assert run.returncode == 0, run.stderr[-2000:]
+    k10_bad, k2_bad = (json.loads(v) for v in run.stdout.strip().split(";"))
+    assert all(e != 0 for e in k10_bad + k2_bad)

@@ -9,6 +9,11 @@
 //   through a two-half per-thread array, one warp barrier a shuffle;
 // - the cp.async helpers of flms_fft.cuh are plain copies, their commit and
 //   wait no-ops;
+// - srp.cu's warp-level mma.sync m16n8k8 TF32 (mma_m16n8k8_tf32): each
+//   thread puts its A and B fragments into a per-warp array, and after the
+//   warp's barrier forms its C fragment from the PTX ISA's fragment layout,
+//   its operands cut to TF32 (the 13 low bits dropped) as the tensor cores
+//   read them;
 // - dynamic shared memory is filled with NaN at each block's start, so a read
 //   of a word the kernel never wrote shows in its outputs;
 // - a launch with more than 1024 threads or more dynamic shared memory than a
@@ -45,6 +50,7 @@ struct alignas(16) float4 {
   float x, y, z, w;
 };
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
@@ -62,6 +68,7 @@ struct Block {
   explicit Block(unsigned nthreads, size_t smem_bytes) : all(nthreads) {
     for (unsigned w = 0; w < (nthreads + 31) / 32; ++w) warps.emplace_back(std::make_unique<std::barrier<>>(32));
     exchange.resize(2 * nthreads);
+    fragments.resize(2 * 6 * nthreads);
     const size_t n = smem_bytes / sizeof(float) + 4;
     smem = static_cast<float*>(std::aligned_alloc(16, ((n * sizeof(float) + 15) / 16) * 16));
     for (size_t i = 0; i < n; ++i) smem[i] = std::numeric_limits<float>::quiet_NaN();
@@ -76,6 +83,7 @@ struct Block {
   std::barrier<> all;
   std::vector<std::unique_ptr<std::barrier<>>> warps;
   std::vector<float> exchange;
+  std::vector<uint32_t> fragments;  // mma_m16n8k8_tf32's A and B registers, 6 a thread, two halves
   std::mutex mu;
   std::map<std::pair<int, int>, std::unique_ptr<std::barrier<>>> groups;
   float* smem = nullptr;
@@ -169,6 +177,52 @@ inline bool __any_sync(unsigned, bool p) {
   bool any = false;
   for (unsigned l = 0; l < 32; ++l) any = any || x[(threadIdx.x & ~31u) | l] != 0.f;
   return any;
+}
+
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof u);
+  return u;
+}
+
+inline float __fdividef(float a, float b) { return a / b; }
+
+namespace shim {
+inline thread_local unsigned mma_parity = 0;
+}  // namespace shim
+
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, d += a b.  Lane l =
+// 4 groupID + tig holds A[groupID + 8 (i & 1)][tig + 4 (i >> 1)] in a[i],
+// B[tig + 4 i][groupID] in b[i] and C[groupID + 8 (i >> 1)][2 tig + (i & 1)]
+// in d[i].  The operands are read as TF32 (the 13 low bits dropped); each
+// exact product is added in k order in float32.  The fragment array
+// alternates halves from one call to the next, as the shuffles' exchange.
+inline void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  shim::Block& blk = *shim::block;
+  uint32_t* x = blk.fragments.data() + (shim::mma_parity ^= 1u) * blk.fragments.size() / 2;
+  uint32_t* mine = x + 6 * threadIdx.x;
+  for (int i = 0; i < 4; ++i) mine[i] = a[i];
+  mine[4] = b[0];
+  mine[5] = b[1];
+  __syncwarp();
+  const unsigned w0 = threadIdx.x & ~31u, lane = threadIdx.x & 31u, grp = lane >> 2, tig = lane & 3u;
+  auto tf32 = [](uint32_t u) { return __uint_as_float(u & 0xffffe000u); };
+  auto A = [&](unsigned row, unsigned k) {
+    return tf32(x[6 * (w0 + 4 * (row & 7u) + (k & 3u)) + (row >> 3) + 2 * (k >> 2)]);
+  };
+  auto B = [&](unsigned k, unsigned n) { return tf32(x[6 * (w0 + 4 * n + (k & 3u)) + 4 + (k >> 2)]); };
+  for (unsigned i = 0; i < 4; ++i) {
+    const unsigned row = grp + 8 * (i >> 1), col = 2 * tig + (i & 1u);
+    float s = d[i];
+    for (unsigned k = 0; k < 8; ++k) s += A(row, k) * B(k, col);
+    d[i] = s;
+  }
 }
 
 inline int min(int a, int b) { return a < b ? a : b; }

@@ -5,15 +5,16 @@
 std::thread per CUDA thread, std::barrier for the block, warp and named
 barriers) into a shared library with the same C launcher as the nvcc build.
 Run as a script, it launches K5 (``flms``), K8 (``fdgsc``), K7 (``aec``),
-K4 (``enhance``, the mega kernel), K9 (``sgsc``) or the MCRA lane kernel
-(``mcra``) from such libraries on CPU buffers and prints, as one JSON
-object, each case's gaps to the kernel's plain version:
+K4 and K2 (``enhance``), K9 (``sgsc``), K1 (``mvdr``), K6 (``kws``), K10
+(``srp``) or the MCRA lane kernel (``mcra``) from such libraries on CPU
+buffers and prints, as one JSON object, each case's gaps to the kernel's
+plain version:
 
     python tests/torch_cuda_shim/rehearse.py LIB_DIR [KERNEL ...]
 
-(every kernel's cases, or those of the kernels named, k5, k8, k7, k4, k9,
-mcra, or of the cases whose names start with a given prefix and a dash,
-such as k4-rank1-256).
+(every kernel's cases, or those of the kernels named, k5, k8, k7, k4, k2,
+k9, k1, k6, k10, mcra, or of the cases whose names start with a given
+prefix and a dash, such as k4-rank1-256).
 
 The launches run in this separate process so that a kernel whose barriers
 do not match cannot hang the caller: the caller gives it a time limit.
@@ -72,9 +73,9 @@ CASES += [("k4", "rank1", 1024, mics) for mics in (2, 8)]
 CASES += [("k4", "rank1", 768, 4), ("k4", "rank1", 1280, 3), ("k4", "rank1", 2048, 2), ("k4", "rank1", 256, 12)]
 # and at 2048 with 10 mics, where its spectra outgrow shared memory too
 CASES += [("k4", "rank1", 2048, 10)]
-# K2 (enhance.cu's lane kernel) above 8 mics, rank-1 at n_fft 256: its
-# memory lanes in shared memory (12 mics; in a global scratch at 28, the
-# last case)
+# K2 (enhance.cu's lane kernel) above 8 mics, rank-1 at n_fft 256: 12 mics
+# (4 threads a lane, its state in registers) and, the last case, 28 (its
+# memory lanes in a global scratch)
 CASES += [("k2", "rank1", 256, 12)]
 # K9 (variant = config, size = Lf): the default config and McSpp's MCRA
 # window cut to L=3 (so that p moves within the frames), at Lf=128 (one warp
@@ -103,11 +104,27 @@ CASES += [("k1", variant, mics, mics) for variant in ("gain", "none") for mics i
 # in a global scratch (28 mics), and K1 by mic columns with one column a
 # thread (20 mics; 33 takes two)
 CASES += [("k2", "rank1", 256, 28), ("k1", "gain", 20, 20)]
-LIBRARIES = {"k1": "mvdr", "k2": "enhance", "k5": "flms", "k8": "fdgsc", "k7": "aec", "k4": "enhance", "k9": "sgsc", "mcra": "mcra", "k6": "kws"}
+# K2 up to 8 mics (a thread pair a lane, its rows split): rank-1 at n_fft 64
+# (33 bins: the first, the interior and the last) with 2, 3, 4 and 8 mics
+# over K2_FRAMES frames in chunks of K2_T_CHUNK: 11 warm chunks (66 frames
+# of exact LDL^H), the handover after frame 65 and a re-anchor at frame 72;
+# and LDL^H mode at 8.  (Each of the kernel's shuffles is a barrier of 32
+# threads in the shim, so the lanes are few.)
+K2_FRAMES, K2_T_CHUNK = 74, 6
+CASES += [("k2", "rank1", 64, mics) for mics in (2, 3, 4, 8)] + [("k2", "ldl", 64, 8)]
+# K10 (variant = the angles, size = mics): K10_ROWS rows (a block of 32 and
+# a partial one) x K10_BINS bins, 360 angles (the grid's rows by 16-byte
+# copies) at 2, 3 and 8 mics (one and two k-steps a bin) and 12 (a bin in two
+# steps of the ring, two blocks of angles), and 37 angles at 3 mics (4-byte
+# copies, a partial column tile)
+K10_ROWS, K10_BINS = 45, 5
+CASES += [("k10", "t360", mics, mics) for mics in (2, 3, 8, 12)] + [("k10", "t37", 3, 3)]
+LIBRARIES = {"k1": "mvdr", "k2": "enhance", "k5": "flms", "k8": "fdgsc", "k7": "aec", "k4": "enhance", "k9": "sgsc",
+             "mcra": "mcra", "k6": "kws", "k10": "srp"}
 
 
 def case_name(kernel: str, variant: str, size: int, mics: int) -> str:
-    return f"{kernel}-{variant}-{size}" + ("" if mics in (4, 1) or kernel in ("k6", "k1") else f"-m{mics}")
+    return f"{kernel}-{variant}-{size}" + ("" if mics in (4, 1) or kernel in ("k6", "k1", "k10") else f"-m{mics}")
 
 
 def rewrite(source: str) -> str:
@@ -332,23 +349,39 @@ def run_k6(lib, variant: str, Lf: int, seed: int) -> dict:
             "exact_passthrough": bool(torch.equal(out[:, :head], d[:, :head]))}
 
 
-def open_steady(x, cfg, t_chunk: int) -> int:
-    """Lane-frames whose covariance gate opens after the rank-1 warmup (the
-    gate depends on MCRA alone; the guard is off)."""
+def _gate(x, cfg):
+    """The covariance gate [T, B, F] of input x (the guard is off): p < p_vad
+    from the port's MCRA on mic 0."""
     from distantspeech_tpu_torch.noise.mcra import mcra_run
-    from distantspeech_tpu_torch.ops.cuda_enhance import _warm_chunks
     from distantspeech_tpu_torch.transform import analysis
 
     X0 = analysis(x[:, 0], cfg.stft)  # [B, T, F]
     _, p = mcra_run(cfg.mvdr.mcra, (X0.abs() ** 2).transpose(0, 1).contiguous())
-    return int((p < cfg.mvdr.p_vad)[_warm_chunks(t_chunk) * t_chunk:].sum())
+    return p < cfg.mvdr.p_vad
 
 
-def _enhance_case(mics: int, inv_mode: str, n_fft: int, seed: int):
-    """K2's and K4's inputs: B=2 x K4_FRAMES frames of speech-like bursts
-    over noise, the guard off (no decision of the kernel's can part from
-    the plain version's), rel_diag on (so that rank-1 re-anchors its
-    loading); (cfg, x, steer, steering planes, lane params)."""
+def open_steady(x, cfg, t_chunk: int) -> int:
+    """Lane-frames whose covariance gate opens after the rank-1 warmup (the
+    gate depends on MCRA alone; the guard is off)."""
+    from distantspeech_tpu_torch.ops.cuda_enhance import _warm_chunks
+
+    return int(_gate(x, cfg)[_warm_chunks(t_chunk) * t_chunk:].sum())
+
+
+def gate_changes(x, cfg) -> int:
+    """Lane-frames whose covariance gate differs from the frame before: the
+    held u of a closed frame then comes from an earlier open one."""
+    gate = _gate(x, cfg)
+    return int((gate[1:] != gate[:-1]).sum())
+
+
+def _enhance_case(mics: int, inv_mode: str, n_fft: int, seed: int, frames: int = K4_FRAMES, t_chunk: int = K4_T_CHUNK,
+                  batch: int = B):
+    """K2's and K4's inputs: ``batch`` utterances x ``frames`` frames of
+    speech-like bursts over noise, the guard off (no decision of the
+    kernel's can part from the plain version's), rel_diag on (so that
+    rank-1 re-anchors its loading); (cfg, x, steer, steering planes, lane
+    params)."""
     import numpy as np
     import torch
 
@@ -360,14 +393,14 @@ def _enhance_case(mics: int, inv_mode: str, n_fft: int, seed: int):
     from distantspeech_tpu_torch.transform.stft import StftConfig
 
     cfg = EnhanceConfig(mvdr=MvdrConfig(stft=StftConfig(n_fft, n_fft // 2), vad_guard=False, rel_diag=1e-5))
-    hop, T4 = cfg.stft.hop, K4_FRAMES
+    hop, T4 = cfg.stft.hop, frames
     rng = np.random.default_rng(seed)
-    env = np.repeat(rng.random((B, T4)) < 0.5, hop, axis=1)  # speech-like bursts that MCRA sees come and go
-    x = env[:, None] * rng.standard_normal((B, 1, T4 * hop)) + 0.3 * rng.standard_normal((B, mics, T4 * hop))
+    env = np.repeat(rng.random((batch, T4)) < 0.5, hop, axis=1)  # speech-like bursts that MCRA sees come and go
+    x = env[:, None] * rng.standard_normal((batch, 1, T4 * hop)) + 0.3 * rng.standard_normal((batch, mics, T4 * hop))
     x = torch.as_tensor(x, dtype=torch.float32).contiguous()
     steer = steering_vector(ArrayGeometry.linear(mics, 0.032), np.array([np.pi / 2, 0.0]), n_fft).astype(np.complex64)
-    _, planes, _ = ce._prepare(x, steer, cfg, K4_T_CHUNK, inv_mode)
-    return cfg, x, steer, planes, ce._lane_params(cfg, mics, K4_T_CHUNK, inv_mode)
+    _, planes, _ = ce._prepare(x, steer, cfg, t_chunk, inv_mode)
+    return cfg, x, steer, planes, ce._lane_params(cfg, mics, t_chunk, inv_mode)
 
 
 def run_k4(lib, mics: int, inv_mode: str, n_fft: int, seed: int) -> dict:
@@ -393,28 +426,53 @@ def run_k4(lib, mics: int, inv_mode: str, n_fft: int, seed: int) -> dict:
 
 
 def run_k2(lib, mics: int, inv_mode: str, n_fft: int, seed: int) -> dict:
+    """K2: up to 8 mics over K2_FRAMES frames in chunks of K2_T_CHUNK, above
+    over K4's; one utterance where 9 to 16 mics run 4 threads a lane (each
+    of their shuffles a barrier of 32 threads in the shim), two else."""
     import torch
 
     from distantspeech_tpu_torch.ops import cuda_enhance as ce
 
-    cfg, x, _, planes, params = _enhance_case(mics, inv_mode, n_fft, seed)
+    frames, tc = (K2_FRAMES, K2_T_CHUNK) if mics <= 8 else (K4_FRAMES, K4_T_CHUNK)
+    nb = 1 if 8 < mics <= 16 else B
+    cfg, x, _, planes, params = _enhance_case(mics, inv_mode, n_fft, seed, frames, tc, nb)
     Z = ce._analysis_planes(x, cfg.stft)
     Sf = ce._smoothed_power(Z, cfg.mvdr.mcra.b).contiguous()
     F = cfg.stft.half_bin
-    Y = torch.full((K4_FRAMES, 2, B, F), float("nan"))
+    Y = torch.full((frames, 2, nb, F), float("nan"))
     lib.fused_enhance_scratch_floats.argtypes = [ctypes.c_int] * 3
     lib.fused_enhance_scratch_floats.restype = ctypes.c_longlong
-    n_scratch = lib.fused_enhance_scratch_floats(mics, B, F)
+    n_scratch = lib.fused_enhance_scratch_floats(mics, nb, F)
     scratch = torch.full((n_scratch,), float("nan")) if n_scratch > 0 else None
     fn = lib.fused_enhance_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     err = fn(Z.data_ptr(), Sf.data_ptr(), planes.data_ptr(), Y.data_ptr(),
-             scratch.data_ptr() if scratch is not None else None, mics, B, F, K4_FRAMES,
+             scratch.data_ptr() if scratch is not None else None, mics, nb, F, frames,
              ctypes.addressof(params), None)
-    want = ce.enhance_lanes_plain(Z, Sf, planes, cfg, K4_T_CHUNK, inv_mode)
-    return {"err": err, "out": _gap(Y, want), "open_steady": open_steady(x, cfg, K4_T_CHUNK),
-            "scratch_floats": n_scratch}
+    want = ce.enhance_lanes_plain(Z, Sf, planes, cfg, tc, inv_mode)
+    return {"err": err, "out": _gap(Y, want), "open_steady": open_steady(x, cfg, tc),
+            "gate_changes": gate_changes(x, cfg), "scratch_floats": n_scratch}
+
+
+def run_k10(lib, Theta: int, mics: int, seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from distantspeech_tpu_torch.ops import cuda_srp as cr
+
+    R, F = K10_ROWS, K10_BINS
+    rng = np.random.default_rng(seed)
+    y = rng.standard_normal((R, F, mics)) + 1j * rng.standard_normal((R, F, mics))
+    y2 = torch.as_tensor(np.concatenate([y.real, y.imag], axis=-1) / np.abs(y).max(), dtype=torch.float32).contiguous()
+    grid = np.exp(1j * rng.uniform(0, 2 * np.pi, (Theta, F, mics))).astype(np.complex64)
+    G = cr.pack_grid(grid, torch.device("cpu"))
+    out = torch.full((R, Theta), float("nan"))
+    fn = lib.fused_srp_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(y2.data_ptr(), G.data_ptr(), out.data_ptr(), R, F, mics, Theta, None)
+    return {"err": err, "out": _gap(out, cr.srp_spectrum_plain(y2, G))}
 
 
 def run_k9(lib, variant: str, Lf: int, seed: int) -> dict:
@@ -501,6 +559,8 @@ def main(lib_dir: str, kernels=()) -> None:
             g = run_k9(lib, variant, size, seed=i)
         elif kernel == "k2":
             g = run_k2(lib, mics, variant, size, seed=i)
+        elif kernel == "k10":
+            g = run_k10(lib, int(variant[1:]), mics, seed=i)
         elif kernel == "k1":
             g = run_k1(lib, variant == "gain", size, seed=i)
         elif kernel == "k6":
