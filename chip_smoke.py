@@ -126,10 +126,29 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    stages and K6 built without fused multiply-adds; ``kws_fused``'s input
    is shorter than K6's tap FIFO, which the row says, and a companion line
    runs it with the defer cut so that the FIFO wraps (< 1e-3);
-16. with ``--parent DIR`` (a checkout of the parent commit), K2 and K10
+16. BASELINE configs 1, 2 and 4: B7 (WPE -> SRP-PHAT) at full size through
+   ``doa.wpe_srp_process(x, ArrayGeometry.linear(8, 0.032),
+   WpeConfig(n_channels=8), SrpConfig(), backend="fused")`` on B=8 x 8 mics
+   x 4 s of phase 13's scene made reverberant (``reverb_scene``: RT60 0.4
+   s, DRR 0 dB), with launch counts reset just before and read just after
+   (one launch each of K10 and the MCRA lane kernel; finite; the summed
+   spectrum's pick within 3 degrees of the true angle or its mirror), K10
+   held to its plain version on B7's own input (< 1e-4), the path and its
+   stages (subband analysis, WPE, synthesis, SRP) timed, with WPE's torch
+   calls a frame; the card's float32 WPE against the same code in float64
+   on the CPU at B=2 x 1 s (< 2e-2 of max|e|); then, once each through its
+   entry point at the JAX benchmark's size (``SLICE_E_B``), finite and
+   timed in audio-s/s: ``fixed_process`` SD and DS (B=8 x 4 mics; DS's
+   output SNR above mic 0's on the white-noise scene), the offline
+   ``adaptive_mvdr2_process`` (one 8-mic utterance whose first 200 frames
+   are noise only; output SNR above mic 0's after them), ``gsc_process``
+   with the benchmark's guards (B=32 x 4) and ``pmwf_process`` (B=128 x 4),
+   each output SNR above mic 0's, ``wpe_process`` (B=8 x 2) and
+   ``idoa_run`` (B=8 x 4, n_fft 512, p within [0, 1]);
+17. with ``--parent DIR`` (a checkout of the parent commit), K2 and K10
    alone and the flagship ``fused`` path and B6, timed in the parent and in
    this tree in turns (``scripts/path_times.py``);
-17. the ``kernels`` JSON line, the card line, and the final JSON line.
+18. the ``kernels`` JSON line, the card line, and the final JSON line.
 
 K1, K2 and K6 also print a chain floor beside their bound: T frames times
 the longest dependent chain of one frame on the kernel's layout, counted
@@ -357,6 +376,7 @@ def main() -> int:
     kernels += smoke_k10(dev, card, B=8, seconds=4)
     kernels += smoke_wide(dev, card, seconds=4)
     smoke_gate_rel(dev, card)
+    smoke_slice_e(dev, card, seconds=4)
     if args.parent:
         parent_times(args.parent)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included", flush=True)
@@ -2187,6 +2207,208 @@ def smoke_gate_rel(dev, card: str) -> None:
         check(np.isfinite(r) and r <= gate if gate == 0.0 else np.isfinite(r) and r < gate,
               f"gate_rel {name}: {r:.3e} within {gate:g} ({'its JAX bar' if gate == bar else 'the JAX harness tolerance'})")
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def reverb_scene(B, M, S, seed, rt60=0.4, drr_db=0.0):
+    """Phase 13's ``doa_scene`` made reverberant on the host: each mic's
+    signal convolved with its own seeded room response, a unit direct path
+    and, from 2 ms on, white noise under an exponential decay that falls 60
+    dB in ``rt60`` seconds, scaled to a direct-to-reverberant ratio of
+    ``drr_db``.  Returns x [B, M, S] float32."""
+    x = doa_scene(B, M, S, seed).astype(np.float64)
+    rng = np.random.default_rng(seed + 1)
+    L = int(rt60 * FS)
+    n = np.arange(L)
+    h = rng.standard_normal((B, M, L)) * np.exp(-n * np.log(1e3) / L) * (n >= FS // 500)
+    h *= np.sqrt(10 ** (-drr_db / 10) / np.sum(h**2, axis=-1, keepdims=True))
+    h[..., 0] = 1.0
+    nfft = 1 << int(np.ceil(np.log2(S + L - 1)))
+    return np.fft.irfft(np.fft.rfft(x, nfft) * np.fft.rfft(h, nfft), nfft)[..., :S].astype(np.float32)
+
+
+def lead_in_scene(M, S, lead, seed):
+    """``scene``'s burst on one utterance with the target silent for the
+    first ``lead`` samples, white noise on every mic at the target's mean
+    power.  Returns (x [1, M, S] float32, envelope [1, S])."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(S)
+    env = ((np.sin(2 * np.pi * 1.3 * t / FS) > 0) & (t >= lead)).astype(np.float64)[None]
+    tgt = env * rng.standard_normal((1, S))
+    noise = rng.standard_normal((1, M, S)) * np.sqrt(np.mean(tgt**2))
+    return (tgt[:, None] + noise).astype(np.float32), env
+
+
+def torch_calls(fn, *args) -> int:
+    """The torch functions ``fn(*args)`` calls (each launches at most about
+    one kernel on the card; views launch none)."""
+    from torch.overrides import TorchFunctionMode
+
+    class Count(TorchFunctionMode):
+        n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn(*args)
+    return Count.n
+
+
+# phase 16's utterance counts: the JAX benchmark's sizes (PIPELINES_r05.json)
+SLICE_E_B = {"B7": 8, "fixed": 8, "gsc": 32, "pmwf": 128, "wpe": 8, "idoa": 8}
+
+
+def smoke_slice_e(dev, card: str, seconds: int) -> None:
+    """Phase 16: BASELINE configs 1, 2 and 4 on the card.  B7 (WPE -> SRP-PHAT,
+    ``doa.wpe_srp_process``) at full size with its launch counts, K10 held to
+    its plain version on B7's own input, the stages timed; the card's float32
+    WPE against the same code in float64 on the CPU; then the fixed
+    beamformers, the offline MVDR, the GSC, the PMWF, WPE and IDOA once each
+    through their entry points at the JAX benchmark's sizes."""
+    import torch
+
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+    from distantspeech_tpu_torch.array.steering import steering_vector
+    from distantspeech_tpu_torch.beamform import (
+        FixedBeamformerConfig, GscConfig, PmwfConfig, adaptive_mvdr2_process, fixed_beamformer_weights,
+        fixed_process, gsc_process, pmwf_process,
+    )
+    from distantspeech_tpu_torch.derev import WpeConfig, wpe_init, wpe_process, wpe_run, wpe_step
+    from distantspeech_tpu_torch.doa import IdoaConfig, SrpConfig, idoa_run, srp_process, wpe_srp_process
+    from distantspeech_tpu_torch.doa.wpe_srp import wpe_analysis, wpe_synthesis
+    from distantspeech_tpu_torch.doa.srp import device_grid
+    from distantspeech_tpu_torch.ops import cuda_srp as cr
+    from distantspeech_tpu_torch.runtime.profiling import benchmark
+    from distantspeech_tpu_torch.transform import StftConfig, analysis
+
+    tag = f"[{card}]"
+    t_phase = time.perf_counter()
+    S = seconds * FS
+    on = lambda a: torch.as_tensor(a, device=dev)
+
+    def run_path(name, audio_s, fn, *args, n=2):
+        """One call whose output is checked, then the median of ``n`` more
+        (CUDA events): (output, ms)."""
+        out, _ = timed_once(fn, *args)
+        ms = float(np.median([timed_once(fn, *args)[1] for _ in range(n)]))
+        print(f"{name}: {ms:.3f} ms/call, {audio_s / ms * 1e3:.1f} audio-s/s {tag}", flush=True)
+        return out, ms
+
+    # ---- B7: BASELINE config 4 at full size, B=8 x 8 mics, through wpe_srp_process
+    B, M = SLICE_E_B["B7"], 8
+    geom8 = ArrayGeometry.linear(M, 0.032)
+    cfg, scfg = WpeConfig(n_channels=M), SrpConfig()
+    x = on(reverb_scene(B, M, S, seed=16))
+    reset_launches()
+    spec, p = wpe_srp_process(x, geom8, cfg, scfg, backend="fused")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["fused_srp_spectrum"] == 1 and counts["mcra_run"] == 1 and sum(counts.values()) == 2,
+          f"B7 wpe_srp_process fused launched K10 and the MCRA lane kernel once each: {counts}")
+    T = S // scfg.stft.hop
+    check(tuple(spec.shape) == (B, T, 360) and tuple(p.shape) == (B, T, scfg.stft.half_bin)
+          and bool(torch.isfinite(spec).all()) and bool(torch.isfinite(p).all()),
+          f"B7: finite spectrum {tuple(spec.shape)}, p {tuple(p.shape)}")
+    true_deg = float(np.degrees(np.arccos(geom8.c / (0.032 * geom8.fs))))
+    pick = int(spec.sum(dim=(0, 1)).argmax())
+    off = min(abs(pick - a) for a in (true_deg, 360.0 - true_deg))
+    check(off <= 3.0, f"B7: the summed spectrum picks {pick} deg, {off:.2f} deg from {true_deg:.2f} deg or its "
+                      f"mirror (<= 3; RT60 0.4 s, DRR 0 dB)")
+    D = wpe_analysis(x, cfg)  # [T_wpe, B, F, C]
+    e = wpe_run(cfg, D)
+    y = wpe_synthesis(e, cfg)
+    Ys = torch.movedim(torch.movedim(analysis(y, scfg.stft), -3, -1), -3, 0)
+    y2 = cr.whitened_rows(Ys).contiguous()
+    G = device_grid(scfg, geom8, dev, packed=True)
+    got, want = cr.srp_spectrum(y2, G), cr.srp_spectrum_plain(y2, G)
+    rel, mx = rel_err(got, want)
+    check(rel < SRP_GATE, f"fused_srp_spectrum on B7's input (B={B}, {seconds} s) vs its plain version: rel "
+                          f"{rel:.3e} (max abs {mx:.3e}) < {SRP_GATE:g}")
+
+    audio = B * S / FS
+    # host-launched: its times move between calls, so the medians of 5
+    _, path_ms = run_path(f"B7 wpe_srp_process fused (B={B}, M={M}, {seconds} s)", audio, wpe_srp_process, x, geom8,
+                          cfg, scfg, True, "fused", n=5)
+    stages = {
+        "subband analysis": (wpe_analysis, x, cfg),
+        "WPE (wpe_run)": (wpe_run, cfg, D),
+        "subband synthesis": (wpe_synthesis, e, cfg),
+        "srp_process fused (STFT, whitening, K10, MCRA lanes)": (srp_process, y, geom8, scfg, True, "fused"),
+    }
+    for name, (fn, *a) in stages.items():
+        ms = timed_ms(fn, *a, n=5)
+        print(f"B7 stage {name}: {ms:.3f} ms ({100 * ms / path_ms:.1f}% of the path) {tag}", flush=True)
+    k10_ms = benchmark(cr.srp_spectrum, y2, G)["per_call_s"] * 1e3
+    T_wpe = D.shape[0]
+    calls = torch_calls(wpe_step, cfg, wpe_init(cfg, (B,), device=dev), D[0], D[0])
+    print(f"B7: K10 {k10_ms:.3f} ms ({100 * k10_ms / path_ms:.2f}% of the path); WPE {T_wpe} frames, {calls} torch "
+          f"calls a frame ({calls * T_wpe} in the frame loop) {tag}", flush=True)
+
+    # ---- the card's float32 WPE against the same code in float64 on the CPU, B=2 x 1 s
+    x2 = x[:2, :, :FS]
+    e32 = wpe_run(cfg, wpe_analysis(x2, cfg))
+    e64 = wpe_run(cfg, wpe_analysis(x2.cpu().double(), cfg))
+    diff = (e32.cpu().to(e64.dtype) - e64).abs().max()
+    gap, mx = float(diff / e64.abs().max()), float(diff)
+    check(gap < FLIP, f"WPE float32 on the card vs float64 on the CPU (B=2, 8 mics, 1 s, {e64.shape[0]} frames): "
+                      f"{gap:.3e} of max|e| (max abs {mx:.3e}) < {FLIP:g}")
+
+    # ---- config 1: the fixed beamformers, B=8 x 4 mics, on the broadside white-noise scene
+    geom4 = ArrayGeometry.linear(4, 0.032)
+    Bf = SLICE_E_B["fixed"]
+    xs, env = scene(Bf, 4, S, seed=17)
+    snr_in = segment_snr_db(xs[:, 0], env, 0)
+    for wt in ("SD", "DS"):
+        fcfg = FixedBeamformerConfig(weight_type=wt)
+        W = fixed_beamformer_weights(geom4, (90.0, 0.0), fcfg)
+        out, _ = run_path(f"fixed_process {wt} (B={Bf}, M=4, {seconds} s)", Bf * S / FS, fixed_process, on(xs), W,
+                          fcfg.stft)
+        check(tuple(out.shape) == (Bf, S) and bool(torch.isfinite(out).all()), f"fixed_process {wt}: finite {tuple(out.shape)}")
+        snr = segment_snr_db(out.cpu().numpy(), env, fcfg.stft.hop)
+        if wt == "DS":
+            check(snr > snr_in, f"fixed_process DS: output SNR {snr:.2f} dB above mic 0's {snr_in:.2f} dB")
+        else:
+            print(f"fixed_process SD: output SNR {snr:.2f} dB, mic 0 {snr_in:.2f} dB (superdirective weights "
+                  f"amplify white noise at low frequencies: no gate)", flush=True)
+
+    # ---- config 2: the offline MVDR on one 8 x 4 s utterance, its first 200 frames noise only
+    lead = 200 * 128
+    xm, env = lead_in_scene(8, S, lead, seed=18)
+    steer = steering_vector(geom8, np.array([np.pi / 2, 0.0]), 256)
+    out, _ = run_path(f"adaptive_mvdr2_process (1 x 8 mics x {seconds} s)", S / FS, adaptive_mvdr2_process, on(xm[0]),
+                      steer)
+    check(tuple(out.shape) == (S,) and bool(torch.isfinite(out).all()), f"adaptive_mvdr2_process: finite {tuple(out.shape)}")
+    snr_in, snr = segment_snr_db(xm[:, 0], env, 0, start=lead), segment_snr_db(out.cpu().numpy()[None], env, 0, start=lead)
+    check(snr > snr_in, f"adaptive_mvdr2_process: output SNR {snr:.2f} dB above mic 0's {snr_in:.2f} dB after the "
+                        f"estimation window")
+
+    # ---- the GSC (B=32) with the benchmark's guards, and the PMWF (B=128), 4 mics
+    look = (np.pi / 2, 0.0)
+    for name, Bp, fn, extra in (
+        ("gsc_process", SLICE_E_B["gsc"], gsc_process, (look, GscConfig(n_mics=4, normalize_aic=True, spp_rel_diag=1e-5))),
+        ("pmwf_process", SLICE_E_B["pmwf"], pmwf_process, (PmwfConfig(n_mics=4),)),
+    ):
+        xs, env = scene(Bp, 4, S, seed=19)
+        snr_in = segment_snr_db(xs[:, 0], env, 0)
+        out, _ = run_path(f"{name} (B={Bp}, M=4, {seconds} s)", Bp * S / FS, fn, on(xs), geom4, *extra)
+        check(tuple(out.shape) == (Bp, S) and bool(torch.isfinite(out).all()), f"{name}: finite {tuple(out.shape)}")
+        snr = segment_snr_db(out.cpu().numpy(), env, extra[-1].stft.hop)  # the STFT delays by one hop
+        check(snr > snr_in, f"{name}: output SNR {snr:.2f} dB above mic 0's {snr_in:.2f} dB")
+
+    # ---- WPE (B=8 x 2 mics) and IDOA (B=8 x 4 mics, n_fft 512)
+    Bw, Bi = SLICE_E_B["wpe"], SLICE_E_B["idoa"]
+    out, _ = run_path(f"wpe_process (B={Bw}, M=2, {seconds} s)", Bw * S / FS, wpe_process,
+                      on(reverb_scene(Bw, 2, S, seed=20)), WpeConfig(n_channels=2))
+    check(tuple(out.shape) == (Bw, S) and bool(torch.isfinite(out).all()), f"wpe_process: finite {tuple(out.shape)}")
+    icfg = IdoaConfig()
+    Xi = analysis(on(doa_scene(Bi, 4, S, seed=21)), StftConfig(icfg.n_fft, icfg.n_fft // 2))
+    Xi = torch.movedim(torch.movedim(Xi, -3, -1), -3, 0)  # [T, B, F, M]
+    out, _ = run_path(f"idoa_run (B={Bi}, M=4, {seconds} s, {Xi.shape[0]} frames)", Bi * S / FS, idoa_run, icfg, geom4,
+                      Xi)
+    check(tuple(out.shape) == (Xi.shape[0], Bi, icfg.half_bin, icfg.n_theta) and bool(torch.isfinite(out).all())
+          and float(out.min()) >= 0.0 and float(out.max()) <= 1.0, f"idoa_run: finite p in [0, 1], {tuple(out.shape)}")
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

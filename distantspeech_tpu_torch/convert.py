@@ -27,7 +27,19 @@ of JAX is imported:
 - ``subband_gsc_config_from_dict`` / ``subband_gsc_state_from_numpy``
   (``SubbandGscState``: the input-side carries and the core, whose McSpp
   state nests the McCDR's MSC and MCRA states; McSpp's ``frm_cnt`` an int)
-  and ``srp_config_from_dict``.
+  and ``srp_config_from_dict``;
+- ``wpe_config_from_dict`` / ``wpe_state_from_numpy`` (``WpeState``: ``{"W",
+  "buf", "P", "var"}``), ``subband_config_from_dict``,
+  ``fixed_config_from_dict`` (its ``stft`` nested), ``pmwf_config_from_dict``;
+- ``mc_mcra_config_from_dict`` / ``mc_mcra_state_from_numpy``
+  (``McMcraState``: ``{"Phi_yy", "Phi_vv", "frm_cnt"}``, the counter an int),
+  ``gsc_config_from_dict`` / ``gsc_state_from_numpy`` (``GscState``: ``{"G",
+  "Pest", "spp"}`` with the MC-MCRA state nested),
+  ``mcra2_config_from_dict`` / ``mcra2_state_from_numpy`` (``Mcra2State``:
+  ``{"S", "Smin", "p", "lambda_d", "frm_cnt"}``) and
+  ``idoa_config_from_dict`` / ``idoa_state_from_numpy`` (``IdoaState``:
+  ``{"Y_smooth", "Y_xcorr", "mu_Delta", "mu_Delta_h0", "var_Delta_h0",
+  "p"}``).
 """
 
 from __future__ import annotations
@@ -44,18 +56,25 @@ from distantspeech_tpu_torch.adaptive.flms import FlmsState
 from distantspeech_tpu_torch.adaptive.subband import SubbandLmsState
 from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, EnhanceState
 from distantspeech_tpu_torch.beamform.fdgsc import FdGscConfig, FdGscState
+from distantspeech_tpu_torch.beamform.fixed import FixedBeamformerConfig
+from distantspeech_tpu_torch.beamform.gsc import GscConfig, GscState
 from distantspeech_tpu_torch.beamform.mvdr import MvdrConfig, MvdrState
+from distantspeech_tpu_torch.beamform.pmwf import PmwfConfig
 from distantspeech_tpu_torch.beamform.subband_gsc import SubbandGscConfig, SubbandGscCoreState, SubbandGscState
 from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig, TdGscState
 from distantspeech_tpu_torch.coherence.msc import MscState
+from distantspeech_tpu_torch.derev.wpe import WpeConfig, WpeState
+from distantspeech_tpu_torch.doa.idoa import IdoaConfig, IdoaState
 from distantspeech_tpu_torch.doa.srp import SrpConfig
 from distantspeech_tpu_torch.kws.dual_mic import DualMicKwsConfig, DualMicKwsState
+from distantspeech_tpu_torch.noise.mc_mcra import McMcraConfig, McMcraState
 from distantspeech_tpu_torch.noise.mccdr import McCdrState
 from distantspeech_tpu_torch.noise.mcra import McraState
+from distantspeech_tpu_torch.noise.mcra2 import Mcra2Config, Mcra2State
 from distantspeech_tpu_torch.noise.mcspp import McSppState
 from distantspeech_tpu_torch.noise.omlsa import OmlsaState
 from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, FullStackState
-from distantspeech_tpu_torch.transform import StftConfig
+from distantspeech_tpu_torch.transform import StftConfig, SubbandConfig
 
 
 def enhance_config_from_dict(d: Mapping[str, Any]) -> EnhanceConfig:
@@ -182,3 +201,60 @@ def subband_gsc_state_from_numpy(d: Mapping[str, Any], device=None) -> SubbandGs
                                stft_aic_x=_tensor(c["stft_aic_x"], dev), istft_aic=_tensor(c["istft_aic"], dev))
     return SubbandGscState(stft_al=t("stft_al"), stft_fbf=t("stft_fbf"), delay_fbf=t("delay_fbf"),
                            stft_fbf_d=t("stft_fbf_d"), core=core)
+
+
+def wpe_config_from_dict(d: Mapping[str, Any]) -> WpeConfig:
+    return WpeConfig(**d)
+
+
+def wpe_state_from_numpy(d: Mapping[str, Any], device=None) -> WpeState:
+    dev = resolve_device(device)
+    return WpeState(**{k: _tensor(d[k], dev) for k in WpeState._fields})
+
+
+def subband_config_from_dict(d: Mapping[str, Any]) -> SubbandConfig:
+    return SubbandConfig(**d)
+
+
+def fixed_config_from_dict(d: Mapping[str, Any]) -> FixedBeamformerConfig:
+    return FixedBeamformerConfig(**{**d, "stft": StftConfig(**d["stft"])})
+
+
+def pmwf_config_from_dict(d: Mapping[str, Any]) -> PmwfConfig:
+    return PmwfConfig(**d)
+
+
+def mc_mcra_config_from_dict(d: Mapping[str, Any]) -> McMcraConfig:
+    return McMcraConfig(**d)
+
+
+def mc_mcra_state_from_numpy(d: Mapping[str, Any], device=None) -> McMcraState:
+    dev = resolve_device(device)
+    return McMcraState(Phi_yy=_tensor(d["Phi_yy"], dev), Phi_vv=_tensor(d["Phi_vv"], dev), frm_cnt=int(d["frm_cnt"]))
+
+
+def gsc_config_from_dict(d: Mapping[str, Any]) -> GscConfig:
+    return GscConfig(**d)
+
+
+def gsc_state_from_numpy(d: Mapping[str, Any], device=None) -> GscState:
+    dev = resolve_device(device)
+    return GscState(G=_tensor(d["G"], dev), Pest=_tensor(d["Pest"], dev), spp=mc_mcra_state_from_numpy(d["spp"], dev))
+
+
+def mcra2_config_from_dict(d: Mapping[str, Any]) -> Mcra2Config:
+    return Mcra2Config(**{**d, "b": tuple(d["b"])})
+
+
+def mcra2_state_from_numpy(d: Mapping[str, Any], device=None) -> Mcra2State:
+    dev = resolve_device(device)
+    return Mcra2State(**{k: _tensor(d[k], dev) for k in ("S", "Smin", "p", "lambda_d")}, frm_cnt=int(d["frm_cnt"]))
+
+
+def idoa_config_from_dict(d: Mapping[str, Any]) -> IdoaConfig:
+    return IdoaConfig(**d)
+
+
+def idoa_state_from_numpy(d: Mapping[str, Any], device=None) -> IdoaState:
+    dev = resolve_device(device)
+    return IdoaState(**{k: _tensor(d[k], dev) for k in IdoaState._fields})

@@ -10,6 +10,20 @@ from distantspeech_tpu_torch.transform.stft import (
     stft_stream,
     synthesis,
 )
+from distantspeech_tpu_torch.transform.filterbank_design import (
+    design_analysis_prototype,
+    design_synthesis_prototype,
+    nyquist_prototypes,
+)
+from distantspeech_tpu_torch.transform.subband import (
+    SubbandConfig,
+    subband_analysis,
+    subband_analysis_frames,
+    subband_analysis_stream,
+    subband_synthesis,
+    subband_synthesis_init,
+    subband_synthesis_step,
+)
 
 __all__ = [
     "StftConfig",
@@ -22,4 +36,14 @@ __all__ = [
     "istft_stream",
     "stft_init_carry",
     "magphase",
+    "SubbandConfig",
+    "subband_analysis",
+    "subband_analysis_frames",
+    "subband_analysis_stream",
+    "subband_synthesis",
+    "subband_synthesis_init",
+    "subband_synthesis_step",
+    "design_analysis_prototype",
+    "design_synthesis_prototype",
+    "nyquist_prototypes",
 ]

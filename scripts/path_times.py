@@ -15,7 +15,9 @@ K1), at B=64 x 8 mics x 4 s; B2 (TDGSC ``fused``, core and postfilter), B3
 (``full_stack_process`` ``fused``: K7, K6, K5), B4 (FDGSC ``fused``) and B5
 (the subband GSC ``fused``: its front end, K9), all at B=128 x 4 mics x
 4 s; B6 (``doa.srp_process`` ``fused``: the STFT, K10, the MCRA lane
-kernel) at B=8 x 8 mics x 4 s.  The kernels alone: K6 (``fused_kws``) on
+kernel) at B=8 x 8 mics x 4 s; B7 (``doa.wpe_srp_process`` ``fused``:
+BASELINE config 4, WPE of every channel, then B6's stages) at B=8 x 8 mics x
+4 s of ``chip_smoke.reverb_scene``.  The kernels alone: K6 (``fused_kws``) on
 the kws inputs of mics 0/1 of B3's echo scene; K1 (``fused_mvdr_scan``),
 with and without the OM-LSA gain, on B1's spectra, gate and MCRA tracks,
 and with the gain at 12, 16 and 32 mics (``K1 M=12`` ...); K2
@@ -25,8 +27,13 @@ at 12 and 16 mics (``K10 M=12`` ...), B=8 x 4 s; as ``chip_smoke.py``
 builds them.  ``--paths`` picks some of
 them by name (default: the paths, not the kernels alone).  Each is timed
 with CUDA events (``runtime.profiling.benchmark``).  Prints
-one JSON line: {"root", "card", "ms": {path: ms a call}}.  Paired timing of
-two trees, in turns, each run its own process:
+one JSON line: {"root", "card", "ms": {path: ms a call}}.  With ``--trace
+DIR``, each path then runs one more call under ``torch.profiler`` (its
+Chrome trace in ``DIR/<path>``) and the line gains "trace": {path:
+``trace_summary``}: the call's span, its device busy time and idle share,
+the host span of each profiler range it opens (B7's stages) and its
+costliest device ops.  Paired timing of two trees, in turns, each run its
+own process:
 
     for i in $(seq 10); do python3 scripts/path_times.py --root PARENT; python3 scripts/path_times.py; done
 """
@@ -41,10 +48,40 @@ from pathlib import Path
 import numpy as np
 
 
+def trace_summary(prof, top: int = 5) -> dict:
+    """A profiled call's span (first event to last, host clock, ms), the
+    union of its device ops' intervals, the idle share of the span, the host
+    span of each ``record_function`` range and the ``top`` device ops by
+    summed time (ms, count)."""
+    import torch
+
+    events = [e for e in prof.events() if e.time_range.end > e.time_range.start]
+    ranges = [e for e in events if getattr(e, "is_user_annotation", False)]
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and e not in ranges]
+    t0 = min(e.time_range.start for e in events)
+    t1 = max(e.time_range.end for e in events)
+    busy, end = 0.0, t0
+    for e in sorted(dev, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, end), e.time_range.end
+        busy, end = busy + max(hi - lo, 0.0), max(end, hi)
+    by_op = {}
+    for e in dev:
+        ms, n = by_op.get(e.name, (0.0, 0))
+        by_op[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    return {
+        "span_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3, "device_ops": len(dev),
+        "idle_share": 1.0 - busy / (t1 - t0),
+        "ranges_ms": {e.name: (e.time_range.end - e.time_range.start) / 1e3
+                      for e in ranges if e.device_type == torch.autograd.DeviceType.CPU},
+        "top_ops": sorted(([k, ms, n] for k, (ms, n) in by_op.items()), key=lambda r: -r[1])[:top],
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--paths", nargs="*", help="the paths to time (default: all)")
+    ap.add_argument("--trace", metavar="DIR", help="trace one more call of each path into DIR/<path>")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     import torch
@@ -61,13 +98,14 @@ def main() -> int:
     from distantspeech_tpu_torch.beamform.subband_gsc import SubbandGscConfig, subband_gsc_process
     from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig, tdgsc_process
     from distantspeech_tpu_torch.doa.srp import SrpConfig, srp_process, srp_steering_grid
+    from distantspeech_tpu_torch.doa.wpe_srp import wpe_srp_process
     from distantspeech_tpu_torch.noise.mcra import mcra_run
     from distantspeech_tpu_torch.ops import cuda_enhance as ce
     from distantspeech_tpu_torch.ops import cuda_flms as cf
     from distantspeech_tpu_torch.ops import cuda_mvdr as cm
     from distantspeech_tpu_torch.ops import cuda_srp as cr
     from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, full_stack_process
-    from distantspeech_tpu_torch.runtime.profiling import benchmark
+    from distantspeech_tpu_torch.runtime.profiling import benchmark, trace
     from distantspeech_tpu_torch.transform import analysis
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -124,6 +162,7 @@ def main() -> int:
         "B5": lambda: (subband_gsc_process, on(cs.scene(B, M, S, seed=11)[0]), geom, look,
                        SubbandGscConfig(n_mics=M), "fused"),
         "B6": lambda: (srp_process, on(cs.doa_scene(8, 8, S, seed=13)), geom8, SrpConfig(), True, "fused"),
+        "B7": lambda: (wpe_srp_process, on(cs.reverb_scene(8, 8, S, seed=16)), geom8, None, SrpConfig(), True, "fused"),
     }
     kernels = {
         "K6": k6,
@@ -135,12 +174,18 @@ def main() -> int:
         "K10": lambda: k10(8),
         **{f"K10 M={m}": (lambda m=m: k10(m)) for m in (12, 16)},
     }
-    ms = {}
+    ms, traces = {}, {}
     for name in args.paths or list(paths):
         fn, *a = {**paths, **kernels}[name]()
         ms[name] = benchmark(fn, *a)["per_call_s"] * 1e3
+        if args.trace:
+            with trace(str(Path(args.trace) / name.replace(" ", "_"))) as prof:
+                fn(*a)
+                torch.cuda.synchronize()
+            traces[name] = trace_summary(prof)
         del a
-    print(json.dumps({"root": str(root), "card": cs.card_line(), "ms": ms}), flush=True)
+    out = {"root": str(root), "card": cs.card_line(), "ms": ms}
+    print(json.dumps({**out, "trace": traces} if args.trace else out), flush=True)
     return 0
 
 

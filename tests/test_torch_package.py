@@ -13,12 +13,26 @@ import torch
 
 from distantspeech_tpu_torch import resolve_device
 from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+from distantspeech_tpu_torch.beamform import (
+    GscConfig,
+    PmwfConfig,
+    adaptive_mvdr2_process,
+    fixed_beamformer_weights,
+    fixed_process,
+    gsc_init,
+    gsc_process,
+    gsc_process_time,
+    pmwf_process,
+)
 from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, enhance_process
 from distantspeech_tpu_torch.beamform.fdgsc import FdGscConfig, fdgsc_process
 from distantspeech_tpu_torch.beamform.mvdr import mvdr_process
 from distantspeech_tpu_torch.beamform.subband_gsc import SubbandGscConfig, subband_gsc_process
 from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig, tdgsc_process
-from distantspeech_tpu_torch.doa import srp_process
+from distantspeech_tpu_torch.derev import WpeConfig, wpe_init, wpe_process, wpe_run
+from distantspeech_tpu_torch.doa import IdoaConfig, idoa_init, idoa_run, srp_process, wpe_srp_process
+from distantspeech_tpu_torch.noise import McMcraConfig, Mcra2Config, mc_mcra_init, mcra2_init
+from distantspeech_tpu_torch.transform import SubbandConfig, subband_synthesis_init
 from distantspeech_tpu_torch.kws import kws_process
 from distantspeech_tpu_torch.ops import cuda_aec as ca, cuda_enhance as ce, cuda_flms as cf, cuda_mvdr as cm
 from distantspeech_tpu_torch.ops import cuda_mcra as cmc, cuda_sgsc as cs, cuda_srp as cr
@@ -84,6 +98,23 @@ def test_the_card_is_the_default_device(monkeypatch):
         lambda: srp_process(x, geom),
         lambda: srp_process(x, geom, backend="fused"),
         lambda: cr.fused_srp_spectrum(np.zeros((3, 129, 8), np.complex64), np.ones((360, 129, 8), np.complex64)),
+        lambda: fixed_process(x4, fixed_beamformer_weights(geom4, (90.0, 0.0)), EnhanceConfig().mvdr.stft),
+        lambda: adaptive_mvdr2_process(x4, np.ones((129, 4), np.complex64)),
+        lambda: gsc_process(x4[None], geom4, cfg=GscConfig(n_mics=4)),
+        lambda: gsc_process_time(x4[None], geom4),
+        lambda: pmwf_process(x4[None], geom4, PmwfConfig(n_mics=4)),
+        lambda: pmwf_process(x4[None], geom4, PmwfConfig(n_mics=4, full=False)),
+        lambda: wpe_process(x[:2], WpeConfig(num_bands=64, hop=16)),
+        lambda: wpe_run(WpeConfig(num_bands=64, hop=16), np.zeros((6, 33, 2), np.complex64)),
+        lambda: idoa_run(IdoaConfig(n_fft=256), geom4, np.zeros((3, 129, 4), np.complex64)),
+        lambda: wpe_srp_process(x[None], geom),
+        lambda: wpe_srp_process(x[None], geom, backend="fused"),
+        lambda: wpe_init(WpeConfig()),
+        lambda: gsc_init(GscConfig()),
+        lambda: mc_mcra_init(McMcraConfig()),
+        lambda: mcra2_init(Mcra2Config()),
+        lambda: idoa_init(IdoaConfig(), 4),
+        lambda: subband_synthesis_init((), SubbandConfig()),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
