@@ -145,10 +145,22 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    with the benchmark's guards (B=32 x 4) and ``pmwf_process`` (B=128 x 4),
    each output SNR above mic 0's, ``wpe_process`` (B=8 x 2) and
    ``idoa_run`` (B=8 x 4, n_fft 512, p within [0, 1]);
-17. with ``--parent DIR`` (a checkout of the parent commit), K2 and K10
+17. the JAX benchmark's last three rows and the room simulator, which run
+   no kernel of the port's own (``SLICE_F_B``): B8 ``binaural_process``
+   (B=32 x 2 mics), B9 the DS ``fixed_process`` then ``mccowan_process``
+   (B=32 x 4), B10 ``dios_gsc_process`` (B=256 x 4, the alignment FIR of
+   a linear array at 0.032 m), all 4 s of seeded standard normal float32
+   noise, and B11 ``sim.batched_propagation`` (64 sources x 8 mics x 4 s in
+   the default room): finite, the median ms of 5 calls after a warm one,
+   audio-s/s, the torch calls a frame or a segment pair counted on the
+   card, the float32 output's gap to the float64 one on the card (held, on
+   the bar's input, to twice JAX's own float32-vs-float64 gap:
+   ``SLICE_F_JAX_GAP``), and B11's RIRs and one source's propagation held
+   to the host image-source model at JAX's tolerances;
+18. with ``--parent DIR`` (a checkout of the parent commit), K2 and K10
    alone and the flagship ``fused`` path and B6, timed in the parent and in
    this tree in turns (``scripts/path_times.py``);
-18. the ``kernels`` JSON line, the card line, and the final JSON line.
+19. the ``kernels`` JSON line, the card line, and the final JSON line.
 
 K1, K2 and K6 also print a chain floor beside their bound: T frames times
 the longest dependent chain of one frame on the kernel's layout, counted
@@ -158,6 +170,7 @@ from its code, at 4 cycles an operation and the card's maximum SM clock.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import os
 import subprocess
@@ -377,6 +390,7 @@ def main() -> int:
     kernels += smoke_wide(dev, card, seconds=4)
     smoke_gate_rel(dev, card)
     smoke_slice_e(dev, card, seconds=4)
+    smoke_slice_f(dev, card, seconds=4)
     if args.parent:
         parent_times(args.parent)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included", flush=True)
@@ -982,7 +996,7 @@ def smoke_k1(dev, card: str, B: int, seconds: int) -> list:
     hold_mcra(mc, Yg, "(B=8, 1 s)")
     Y1 = (Zt[..., 0].abs() ** 2).contiguous()
     mcra_err, mcra_plain_ms = hold_mcra(mc, Y1, f"on the pallas path's input (B={B}, {seconds} s)")
-    mcra_ms = benchmark(mcra_run, mc, Y1, True)["per_call_s"] * 1e3
+    mcra_ms = benchmark(functools.partial(mcra_run, return_sr=True), mc, Y1)["per_call_s"] * 1e3
     # bound: the power and its smoothing in, lambda_d, p and S / Smin out, once
     # each; operations: the plain frame's elementwise work per lane
     Ys = Y1[:8, :1].double().cpu()
@@ -1009,7 +1023,7 @@ def hold_mcra(mc, Y, where):
     from distantspeech_tpu_torch.noise.mcra import mcra_run, mcra_run_plain
 
     (wl, wp, wsr), plain_ms = timed_once(mcra_run_plain, mc, Y, True)
-    lam, p, sr = mcra_run(mc, Y, True)
+    lam, p, sr = mcra_run(mc, Y, return_sr=True)
     torch.cuda.synchronize()
     tol = gate_flips(f"mcra_run {where}", int(((sr > mc.delta_s) != (wsr > mc.delta_s)).sum()), wsr.numel(),
                      "S / Smin > delta_s decisions")
@@ -1128,7 +1142,7 @@ def smoke_k5(dev, card: str, B: int, seconds: int) -> list:
         print(f"fused_tdgsc {cname} at full size against the float64 plain version: kernel rel "
               f"{rel_err(out, want64)[0]:.3e}, float32 plain rel {rel_err(want, want64)[0]:.3e}", flush=True)
         ms = benchmark(cf.tdgsc_frames, *ins, cfg)["per_call_s"] * 1e3
-        t_path = benchmark(tdgsc_process, x, geom, look, cfg, "fused")["per_call_s"]
+        t_path = benchmark(functools.partial(tdgsc_process, backend="fused"), x, geom, look, cfg)["per_call_s"]
         print(f"{name}: kernel {ms:.3f} ms/call, {ms * 1e3 / T:.2f} us a frame; tdgsc_process fused "
               f"{t_path * 1e3:.3f} ms/call, {B * S / FS / t_path:.0f} audio-s/s (B={B}, M={M}, {seconds} s); "
               f"plain {plain_ms:.1f} ms {tag}", flush=True)
@@ -1381,7 +1395,7 @@ def smoke_slice_c(dev, card: str, B: int, seconds: int) -> list:
     print(f"fused_aec: {ms['K7 fused_aec'] * 1e3 / T:.2f} us a frame; launch layout at hop {acfg.block_len}, "
           f"num_block {acfg.num_block} (mics a block, shared memory): "
           + ", ".join(f"M={m}: {ca.launch_layout(acfg, m)}" for m in (1, 2, 4, 8, 9)), flush=True)
-    t_path = benchmark(full_stack_process, x, far, geom, look, fcfg, "fused")["per_call_s"]
+    t_path = benchmark(functools.partial(full_stack_process, backend="fused"), x, far, geom, look, fcfg)["per_call_s"]
     print(f"full_stack_process fused end to end: {t_path * 1e3:.3f} ms/call, {B * S / FS / t_path:.0f} audio-s/s "
           f"(B={B}, M={M}, {seconds} s); plain K7 {aec_plain_ms:.1f} ms, K6 {kws_plain_ms:.1f} ms {tag}", flush=True)
 
@@ -1436,7 +1450,7 @@ def smoke_slice_c(dev, card: str, B: int, seconds: int) -> list:
     ins8 = fdgsc_inputs(x)
     k8_err, k8_plain_ms, w32 = hold_fdgsc(ins8, f"(B={B}, {seconds} s)", outs)
     k8_ms = benchmark(cf.fdgsc_frames, *ins8, dcfg)["per_call_s"] * 1e3
-    t_path = benchmark(fdgsc_process, x, geom, look, dcfg, True, "fused")["per_call_s"]
+    t_path = benchmark(functools.partial(fdgsc_process, backend="fused"), x, geom, look, dcfg, True)["per_call_s"]
     print(f"fused_fdgsc: kernel {k8_ms:.3f} ms/call, {k8_ms * 1e3 / T:.2f} us a frame; fdgsc_process fused "
           f"{t_path * 1e3:.3f} ms/call, {B * S / FS / t_path:.0f} audio-s/s (B={B}, M={M}, {seconds} s); "
           f"plain {k8_plain_ms:.1f} ms {tag}", flush=True)
@@ -1605,7 +1619,7 @@ def smoke_k9(dev, card: str, B: int, seconds: int) -> list:
     # ---- times
     ms = benchmark(cs.subband_gsc_frames, *ins, cfg)["per_call_s"] * 1e3
     fe_ms = benchmark(inputs, x, cfg)["per_call_s"] * 1e3
-    t_path = benchmark(subband_gsc_process, x, geom, look, cfg, "fused")["per_call_s"]
+    t_path = benchmark(functools.partial(subband_gsc_process, backend="fused"), x, geom, look, cfg)["per_call_s"]
     print(f"fused_subband_gsc: kernel {ms:.3f} ms/call; front end (notch, alignment FIR, FBF, Sf) {fe_ms:.3f} ms; "
           f"subband_gsc_process fused {t_path * 1e3:.3f} ms/call, {B * S / FS / t_path:.0f} audio-s/s (B={B}, M={M}, "
           f"{seconds} s); plain {plain_ms:.1f} ms {tag}", flush=True)
@@ -2115,15 +2129,19 @@ def smoke_gate_rel(dev, card: str) -> None:
         "enhance_pallas": (enh(), enh(backend="pallas")),
         "enhance_fused": (enh(), enh(backend="fused")),
         "enhance_mega": (enh(), enh(backend="mega", inv_mode="rank1")),
-        "tdgsc_fused": tuple(lambda x, device=None, b=b: tdgsc_process(x, geom4, ang, TdGscConfig(n_mics=4), b, device)
+        "tdgsc_fused": tuple(lambda x, device=None, b=b: tdgsc_process(x, geom4, ang, TdGscConfig(n_mics=4),
+                                                                       backend=b, device=device)
                              for b in ("scan", "fused")),
-        "fdgsc_fused": tuple(lambda x, device=None, b=b: fdgsc_process(x, geom4, ang, FdGscConfig(n_mics=4), True, b,
-                                                                       device) for b in ("scan", "fused")),
+        "fdgsc_fused": tuple(lambda x, device=None, b=b: fdgsc_process(x, geom4, ang, FdGscConfig(n_mics=4), True,
+                                                                       backend=b, device=device)
+                             for b in ("scan", "fused")),
         "subband_gsc_fused": tuple(lambda x, device=None, b=b: subband_gsc_process(x, geom4, ang,
-                                                                                   SubbandGscConfig(n_mics=4), b, device)
+                                                                                   SubbandGscConfig(n_mics=4),
+                                                                                   backend=b, device=device)
                                    for b in ("scan", "fused")),
         "full_stack_fused": tuple(lambda x, device=None, b=b: full_stack_process(x, x[:, 0], geom4, ang,
-                                                                                 FullStackConfig(), b, device)
+                                                                                 FullStackConfig(), backend=b,
+                                                                                 device=device)
                                   for b in ("scan", "fused")),
         "kws_fused": (lambda x, device=None: kws_process(x, DualMicKwsConfig(), device),
                       lambda x, device=None: cf.fused_kws(x, DualMicKwsConfig())),
@@ -2409,6 +2427,152 @@ def smoke_slice_e(dev, card: str, seconds: int) -> None:
     check(tuple(out.shape) == (Xi.shape[0], Bi, icfg.half_bin, icfg.n_theta) and bool(torch.isfinite(out).all())
           and float(out.min()) >= 0.0 and float(out.max()) <= 1.0, f"idoa_run: finite p in [0, 1], {tuple(out.shape)}")
     print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# phase 17's utterance counts: the JAX benchmark's sizes (PIPELINES_r05.json; B11 the bank of sources)
+SLICE_F_B = {"B8": 32, "B9": 32, "B10": 256, "B11": 64}
+# phase 17's float32 bars.  JAX's own float32-vs-float64 gap, max |f32 - f64| / max |f64|, of each row on
+# the CPU, on ``slice_f_bar_input`` (B=2 x 1 s of seed-0 standard normal float32 noise), as
+# tests/test_torch_precision_bars.py measures it (and checks these values against, to a factor of 2).
+# The card's float32 is held to SLICE_F_MARGIN times it on the same input, against the port's float64
+# on the card.
+SLICE_F_JAX_GAP = {"B8": 1.307e-05, "B9": 7.977e-07, "B10": 5.055e-06}
+SLICE_F_MARGIN = 2.0
+ISM_HOST_TOL, PROPAGATION_HOST_TOL = 2e-4, 5e-4  # JAX's own (tests/test_runtime_sim.py), of max |host|
+
+
+def slice_f_bar_input(name: str) -> np.ndarray:
+    """The float32 bars' input of row ``name``: [2, M, 16000] float32."""
+    M = {"B8": 2, "B9": 4, "B10": 4}[name]
+    return np.random.default_rng(0).standard_normal((2, M, FS)).astype(np.float32)
+
+
+def slice_f_scene(name: str, seconds: int) -> np.ndarray:
+    """Row ``name``'s input at its main size: [B, M, seconds * FS] seeded
+    standard normal float32 noise, as the JAX benchmark draws its inputs."""
+    B, M = SLICE_F_B[name], {"B8": 2, "B9": 4, "B10": 4}[name]
+    return np.random.default_rng(30 + B + M).standard_normal((B, M, seconds * FS)).astype(np.float32)
+
+
+def b11_scene(seconds: int):
+    """B11's inputs: (signals [64, seconds * FS] float32, sources [64, 3]
+    drawn inside the default room 0.3 m from its walls, an 8-mic linear
+    array at 0.032 m in the room's middle 1 m up [8, 3], the default
+    ``RoomConfig``)."""
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+    from distantspeech_tpu_torch.sim import RoomConfig
+
+    B, cfg = SLICE_F_B["B11"], RoomConfig()
+    rng = np.random.default_rng(31)
+    mics = ArrayGeometry.linear(8, 0.032).mic_loc + np.array([cfg.size[0] / 2, cfg.size[1] / 2, 1.0])
+    srcs = np.stack([rng.uniform(0.3, size - 0.3, B) for size in cfg.size], axis=-1)
+    return rng.standard_normal((B, seconds * FS)).astype(np.float32), srcs, mics, cfg
+
+
+def slice_f_rows(dev) -> dict:
+    """Phase 17's rows B8-B10, each (B, M, f) with f(x) the row's output
+    for x [B, M, S] (float32 or float64) on ``dev``: B8 ``binaural_process``
+    (method 3), B9 the DS ``fixed_process`` then ``mccowan_process``, B10
+    ``dios_gsc_process`` with the alignment FIR of a linear array at
+    0.032 m steered to broadside (``benchmarks/pipelines.py``'s rows)."""
+    from distantspeech_tpu_torch.array.alignment import time_alignment_filters
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+    from distantspeech_tpu_torch.beamform import FixedBeamformerConfig, fixed_beamformer_weights, fixed_process
+    from distantspeech_tpu_torch.beamform.dios_gsc import DiosGscConfig, dios_gsc_process
+    from distantspeech_tpu_torch.coherence.enhance import BinauralConfig, binaural_process
+    from distantspeech_tpu_torch.postfilter import McCowanConfig, mccowan_process
+
+    geom2, geom4 = ArrayGeometry.linear(2, 0.032), ArrayGeometry.linear(4, 0.032)
+    fcfg = FixedBeamformerConfig(weight_type="DS")
+    W = fixed_beamformer_weights(geom4, (90.0, 0.0), fcfg)
+    coeffs = time_alignment_filters(geom4, (np.pi / 2, 0.0)).astype(np.float32)
+
+    def mccowan(x):
+        return mccowan_process(x, fixed_process(x, W, fcfg.stft, device=dev), geom4, McCowanConfig(n_mics=4),
+                               device=dev)
+
+    return {
+        "B8": (SLICE_F_B["B8"], 2, lambda x: binaural_process(x, geom2, BinauralConfig(), device=dev)[0]),
+        "B9": (SLICE_F_B["B9"], 4, mccowan),
+        "B10": (SLICE_F_B["B10"], 4, lambda x: dios_gsc_process(x, coeffs, DiosGscConfig(n_mics=4), device=dev)[0]),
+    }
+
+
+def smoke_slice_f(dev, card: str, seconds: int) -> None:
+    """Phase 17: the JAX benchmark's last three rows and the room simulator on
+    the card, no kernel of the port's own.  B8-B10 (``slice_f_rows``) at the
+    JAX benchmark's sizes on seeded standard normal float32 noise: finite,
+    the median ms of 5 calls after a warm one, audio-s/s, the torch calls a
+    frame (B8, B9) or a segment pair (B10) counted on the card, the full-size
+    float32 output's gap to the float64 one on the card (printed), and the
+    same gap on the bar's input held to ``SLICE_F_MARGIN`` times JAX's own.
+    B11: ``batched_propagation`` of 64 sources x 8 mics x 4 s in the default
+    room, timed likewise; ``batched_rir`` of 4 of its sources held to the
+    host ``image_source_rir`` (``ISM_HOST_TOL``), one source's propagation
+    to the host ``simulate_propagation`` (``PROPAGATION_HOST_TOL``)."""
+    import torch
+
+    from distantspeech_tpu_torch.sim import (
+        batched_propagation, batched_rir, default_rir_length, image_source_rir, simulate_propagation,
+    )
+
+    tag = f"[{card}]"
+    t_phase = time.perf_counter()
+    S = seconds * FS
+    on = lambda a: torch.as_tensor(a, device=dev)
+
+    def timed(name, audio_s, fn, *args):
+        out, _ = timed_once(fn, *args)  # the warm call, its output checked by the caller
+        ms = float(np.median([timed_once(fn, *args)[1] for _ in range(5)]))
+        print(f"{name}: {ms:.3f} ms/call (median of 5), {audio_s / ms * 1e3:.1f} audio-s/s {tag}", flush=True)
+        return out, ms
+
+    def per_step(fn, x, step):
+        """Torch calls a frame / pair: the difference of two lengths' counts."""
+        a, b = (torch_calls(fn, x[:2, :, : n * step]) for n in (20, 40))
+        return (b - a) / 20
+
+    for name, (B, M, fn) in slice_f_rows(dev).items():
+        x = on(slice_f_scene(name, seconds))
+        what = {"B8": "binaural_process", "B9": "fixed_process DS -> mccowan_process",
+                "B10": "dios_gsc_process"}[name]
+        out, ms = timed(f"{name} {what} (B={B}, M={M}, {seconds} s)", B * S / FS, fn, x)
+        check(tuple(out.shape) == (B, S) and bool(torch.isfinite(out).all()), f"{name}: finite {tuple(out.shape)}")
+        step, unit = (32, "segment pair") if name == "B10" else (128, "frame")
+        calls = per_step(fn, x, step)
+        gap_full = rel_err(out, fn(x.double()))[0]
+        xb = on(slice_f_bar_input(name))
+        gap = rel_err(fn(xb), fn(xb.double()))[0]
+        bar = SLICE_F_MARGIN * SLICE_F_JAX_GAP[name]
+        print(f"{name}: {calls:.0f} torch calls a {unit} ({calls * S / step:.0f} a call); float32 vs float64 on the "
+              f"card at full size {gap_full:.3e} {tag}", flush=True)
+        check(np.isfinite(gap) and gap <= bar, f"{name} float32 vs float64 on the card on the bar's input (B=2 x 1 s): "
+                                               f"{gap:.3e} <= {bar:.3e} ({SLICE_F_MARGIN:g} x JAX's own "
+                                               f"{SLICE_F_JAX_GAP[name]:.3e})")
+
+    # ---- B11: the room simulator, 64 sources x 8 mics x 4 s in the default room
+    sig, srcs, mics, cfg = b11_scene(seconds)
+    sig = on(sig)
+    B, M = srcs.shape[0], mics.shape[0]
+    prop, rirs = (functools.partial(f, device=dev) for f in (batched_propagation, batched_rir))
+    out, ms = timed(f"B11 batched_propagation ({B} sources, M={M}, {seconds} s, L={default_rir_length(cfg)})",
+                    B * S / FS, prop, sig, srcs, mics, cfg)
+    check(tuple(out.shape) == (B, M, S) and bool(torch.isfinite(out).all()), f"B11: finite {tuple(out.shape)}")
+    rir_ms = timed_ms(rirs, srcs, mics, cfg, n=5)
+    print(f"B11: batched_rir {rir_ms:.3f} ms ({100 * rir_ms / ms:.1f}% of the path); {torch_calls(rirs, srcs, mics, cfg)} "
+          f"torch calls for the RIRs, {torch_calls(prop, sig, srcs, mics, cfg)} for the path {tag}", flush=True)
+    rir = rirs(srcs[:4], mics, cfg).cpu().numpy()
+    for b in range(4):
+        want = image_source_rir(srcs[b], mics, cfg)  # as long as its own farthest image needs
+        want = np.pad(want, ((0, 0), (0, rir.shape[-1] - want.shape[-1])))
+        err = float(np.max(np.abs(rir[b] - want)) / np.max(np.abs(want)))
+        check(err < ISM_HOST_TOL, f"B11 batched_rir source {b} vs the host image_source_rir: {err:.3e} of max < "
+                                  f"{ISM_HOST_TOL:g}")
+    want = simulate_propagation(sig[0].cpu().numpy().astype(np.float64), srcs[0], mics, cfg)
+    err = float(np.max(np.abs(out[0].cpu().numpy() - want)) / np.max(np.abs(want)))
+    check(err < PROPAGATION_HOST_TOL, f"B11 batched_propagation source 0 vs the host simulate_propagation: {err:.3e} "
+                                      f"of max < {PROPAGATION_HOST_TOL:g}")
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -2,10 +2,13 @@
 
 Every entry point takes ``device=None``, which means the CUDA card.  The CPU
 is used only when a caller asks for it (``device="cpu"``, as the tests do);
-a missing card is an error, never a silent fallback.
+a missing card is an error, never a silent fallback.  ``check_unroll``
+vets the JAX scan hint that the entry points accept at JAX's position.
 """
 
 from __future__ import annotations
+
+import operator
 
 import torch
 
@@ -19,6 +22,17 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch path on the CPU"
         )
     return dev
+
+
+def check_unroll(unroll) -> None:
+    """JAX's ``lax.scan`` unroll hint, taken at JAX's position so that calls
+    written for the JAX package run unchanged.  It is numerically inert and
+    unused here (the frame loops run eagerly), but a value JAX would refuse
+    is refused, so that a ``backend`` passed in its old place fails loudly."""
+    try:
+        operator.index(unroll)
+    except TypeError:
+        raise TypeError(f"unroll must be an int or a bool, got {unroll!r}; pass backend= by keyword") from None
 
 
 def wrapper_input(x) -> torch.Tensor:

@@ -1,12 +1,13 @@
 """TDOA and free-field steering vectors (numpy only, host-side).
 
-Counterpart of ``distantspeech_tpu/array/steering.py`` without its
-``jax.numpy`` helper.
+Counterpart of ``distantspeech_tpu/array/steering.py``; its ``jax.numpy``
+helper ``steering_vector_jax`` is ``steering_vector_torch`` here.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from distantspeech_tpu_torch.array.geometry import ArrayGeometry
 
@@ -42,3 +43,10 @@ def steering_vector(geometry: ArrayGeometry, incident_angle, n_fft: int, dtype=n
     omega = omega_bins(n_fft, geometry.fs)
     phase = omega[..., :, None] * tau[..., None, :]
     return np.exp(-1j * phase).astype(dtype)
+
+
+def steering_vector_torch(tau, omega, dtype=torch.complex64) -> torch.Tensor:
+    """The steering vector from precomputed tau [..., M] and omega [K] (tensors,
+    on any device): exp(-1j omega_k tau_m) [..., K, M] in ``dtype``."""
+    phase = omega[..., :, None] * tau[..., None, :]
+    return torch.exp(-1j * phase).to(dtype)

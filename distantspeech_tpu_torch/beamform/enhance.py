@@ -17,7 +17,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from distantspeech_tpu_torch._device import resolve_device
+from distantspeech_tpu_torch._device import check_unroll, resolve_device
 from distantspeech_tpu_torch.array.geometry import ArrayGeometry
 from distantspeech_tpu_torch.array.steering import steering_vector
 from distantspeech_tpu_torch.beamform.mvdr import MvdrConfig, MvdrState, mvdr_init, mvdr_step
@@ -64,9 +64,11 @@ def enhance_step(cfg: EnhanceConfig, steer: torch.Tensor, state: EnhanceState, Z
     return EnhanceState(mvdr=mvdr_state, G_H1=G_H1, gamma=gamma), Yf * G
 
 
-def enhance_scan(cfg: EnhanceConfig, steer: torch.Tensor, state: EnhanceState, Zt: torch.Tensor):
+def enhance_scan(cfg: EnhanceConfig, steer: torch.Tensor, state: EnhanceState, Zt: torch.Tensor, unroll: int = 8):
     """Loop ``enhance_step`` over frames.  Zt: [T, ..., F, M].
-    Returns (final_state, Y [T, ..., F])."""
+    Returns (final_state, Y [T, ..., F]).  ``unroll`` is JAX's scan hint,
+    inert here (``_device.check_unroll``)."""
+    check_unroll(unroll)
     ys = []
     for z in Zt:
         state, y = enhance_step(cfg, steer, state, z)
@@ -74,14 +76,16 @@ def enhance_scan(cfg: EnhanceConfig, steer: torch.Tensor, state: EnhanceState, Z
     return state, torch.stack(ys)
 
 
-def enhance_scan_pallas(cfg: EnhanceConfig, steer: torch.Tensor, Zt: torch.Tensor) -> torch.Tensor:
+def enhance_scan_pallas(cfg: EnhanceConfig, steer: torch.Tensor, Zt: torch.Tensor, interpret: bool = False) -> torch.Tensor:
     """``enhance_scan`` as two passes: MCRA over the frames of the mic-0
     power (plain PyTorch), then the gated MVDR and the OM-LSA gain in the
     K1 kernel (``ops.cuda_mvdr.fused_mvdr_scan``; its plain version on a
     CPU tensor).  The covariance gate is ``p < p_vad``, and with
     ``vad_guard`` also ``S / Smin <= delta_s``.
 
-    Zt: [T, B, F, M] (exactly 4-D).  Returns Y [T, B, F]."""
+    Zt: [T, B, F, M] (exactly 4-D).  Returns Y [T, B, F].  ``interpret``
+    is the JAX package's Pallas interpret flag, unused: the tensor's device
+    picks the kernel or its plain version."""
     if Zt.ndim != 4:
         raise ValueError(
             f"enhance_scan_pallas needs Zt of shape [T, B, F, M] (4-D), got {tuple(Zt.shape)}; "

@@ -26,7 +26,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from distantspeech_tpu_torch._device import resolve_device
+from distantspeech_tpu_torch._device import check_unroll, resolve_device
 from distantspeech_tpu_torch.adaptive.feature import dc_notch, dc_notch_init
 from distantspeech_tpu_torch.adaptive.flms import FlmsConfig, FlmsState, flms_init
 from distantspeech_tpu_torch.array.alignment import time_alignment_filters
@@ -146,7 +146,8 @@ def fdgsc_step(
 
 def fdgsc_process(
     x, geometry: ArrayGeometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0),
-    cfg: FdGscConfig = FdGscConfig(), dc_notch_input: bool = True, backend: str = "scan", device=None,
+    cfg: FdGscConfig = FdGscConfig(), dc_notch_input: bool = True, unroll: int = 1,
+    backend: str = "scan", device=None,
 ):
     """Offline FDGSC.  x: [..., M, S] -> (output [..., S'], p [..., T, F],
     bm_output [..., M, S']) with S' = T * frame_len.
@@ -154,7 +155,9 @@ def fdgsc_process(
     backend: 'scan' (the per-frame ``fdgsc_step`` loop, any batch shape) or
     'fused' (kernel K8, ``ops.cuda_flms.fused_fdgsc``; x [B, M, S], the
     postfilter off).  On a CPU tensor 'fused' runs the kernel's plain
-    PyTorch version."""
+    PyTorch version.  ``unroll`` is JAX's scan hint, inert here
+    (``_device.check_unroll``)."""
+    check_unroll(unroll)
     x = torch.as_tensor(x, device=resolve_device(device))
     if backend == "fused":
         return fused_fdgsc(x, geometry, angle_rad, cfg, dc_notch_input=dc_notch_input)

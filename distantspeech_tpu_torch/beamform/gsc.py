@@ -5,7 +5,8 @@ fixed beamformer W = a/(a^H a), the pairwise steering blocking matrix
 U_i = a_0* Z_0 - a_{i+1}* Z_{i+1}, a per-bin LMS interference canceller G
 gated by (1 - p_spp), and the multiplicative MC-MCRA OM-LSA postfilter
 gain.  One frame is one [F]-vectorised step; the offline entry point loops
-it over frames (``unroll``, JAX's numerically inert scan hint, is dropped).
+it over frames (``unroll``, JAX's numerically inert scan hint, is accepted
+and unused).
 
 ``gsc_process_time`` is the time-domain variant: DC notch, fractional-delay
 alignment, mean fixed beamformer, adjacent-difference blocking matrix and a
@@ -20,7 +21,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from distantspeech_tpu_torch._device import resolve_device
+from distantspeech_tpu_torch._device import check_unroll, resolve_device
 from distantspeech_tpu_torch.adaptive.feature import dc_notch, dc_notch_init
 from distantspeech_tpu_torch.adaptive.flms import FlmsConfig, flms_init, flms_step
 from distantspeech_tpu_torch.array.alignment import time_alignment_filters
@@ -110,10 +111,12 @@ def gsc_step(cfg: GscConfig, a: torch.Tensor, state: GscState, Z: torch.Tensor) 
 
 
 def gsc_process(
-    x, geometry: ArrayGeometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0), cfg: GscConfig = GscConfig(), device=None,
+    x, geometry: ArrayGeometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0), cfg: GscConfig = GscConfig(),
+    unroll: int = 1, device=None,
 ) -> torch.Tensor:
     """Offline GSC of a time-domain batch.  x: [..., M, S] -> [..., S] on
     ``device``."""
+    check_unroll(unroll)
     x = torch.as_tensor(x, device=resolve_device(device))
     X = analysis(x, cfg.stft)  # [..., M, T, F]
     Zt = torch.movedim(torch.movedim(X, -3, -1), -3, 0)  # [T, ..., F, M]

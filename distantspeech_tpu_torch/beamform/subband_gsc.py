@@ -23,7 +23,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from distantspeech_tpu_torch._device import resolve_device
+from distantspeech_tpu_torch._device import check_unroll, resolve_device
 from distantspeech_tpu_torch.adaptive.subband import (
     SubbandAfConfig,
     SubbandLmsState,
@@ -168,7 +168,7 @@ def subband_gsc_step(
 
 def subband_gsc_process(
     x, geometry: ArrayGeometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0),
-    cfg: SubbandGscConfig = SubbandGscConfig(), backend: str = "scan", device=None,
+    cfg: SubbandGscConfig = SubbandGscConfig(), unroll: int = 1, backend: str = "scan", device=None,
 ):
     """Offline SubbandGSC.  x: [..., M, S].
 
@@ -178,7 +178,9 @@ def subband_gsc_process(
     backend: 'scan' (the per-frame core loop on bulk input spectra, any
     batch shape) or 'fused' (kernel K9, ``ops.cuda_sgsc.fused_subband_gsc``;
     x [B, 4, S]).  On a CPU tensor 'fused' runs the kernel's plain PyTorch
-    version."""
+    version.  ``unroll`` is JAX's scan hint, inert here
+    (``_device.check_unroll``)."""
+    check_unroll(unroll)
     x = torch.as_tensor(x, device=resolve_device(device))
     if backend == "fused":
         return fused_subband_gsc(x, geometry, angle_rad, cfg)

@@ -20,7 +20,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from distantspeech_tpu_torch._device import resolve_device
+from distantspeech_tpu_torch._device import check_unroll, resolve_device
 from distantspeech_tpu_torch.adaptive.flms import FlmsConfig, FlmsState, flms_init, flms_step
 from distantspeech_tpu_torch.array.geometry import ArrayGeometry
 from distantspeech_tpu_torch.noise.mcra import McraConfig, McraState, mcra_init, mcra_step
@@ -120,7 +120,7 @@ def tdgsc_step(cfg: TdGscConfig, state: TdGscState, fbf: torch.Tensor, bm: torch
 
 def tdgsc_process(
     x, geometry: ArrayGeometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0),
-    cfg: TdGscConfig = TdGscConfig(), backend: str = "scan", device=None,
+    cfg: TdGscConfig = TdGscConfig(), unroll: int = 1, backend: str = "scan", device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Offline TDGSC.  x: [..., M, S] -> (output [..., S'], p [..., T, F],
     bm_output [..., M-1, S']) with S' = T * frame_len.
@@ -128,7 +128,9 @@ def tdgsc_process(
     backend: 'scan' (the per-frame ``tdgsc_step`` loop, any batch shape) or
     'fused' (kernel K5, ``ops.cuda_flms.fused_tdgsc``; x [B, M, S];
     ``postfilter`` selects its postfilter variant).  On a CPU tensor
-    'fused' runs the kernel's plain PyTorch version."""
+    'fused' runs the kernel's plain PyTorch version.  ``unroll`` is JAX's
+    scan hint, inert here (``_device.check_unroll``)."""
+    check_unroll(unroll)
     x = torch.as_tensor(x, device=resolve_device(device))
     if backend == "fused":
         return fused_tdgsc(x, geometry, angle_rad, cfg)

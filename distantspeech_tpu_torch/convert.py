@@ -39,7 +39,18 @@ of JAX is imported:
   ``{"S", "Smin", "p", "lambda_d", "frm_cnt"}``) and
   ``idoa_config_from_dict`` / ``idoa_state_from_numpy`` (``IdoaState``:
   ``{"Y_smooth", "Y_xcorr", "mu_Delta", "mu_Delta_h0", "var_Delta_h0",
-  "p"}``).
+  "p"}``);
+- ``binaural_config_from_dict`` / ``msc_state_from_numpy`` (``MscState``:
+  ``{"Pxii", "Pxij"}``, the binaural and McCowan recursions' state),
+  ``mccowan_config_from_dict``;
+- ``dios_gsc_config_from_dict`` / ``dios_gsc_state_from_numpy``
+  (``DiosGscState``: ``{"abm": {"Xdline", "xrefdline", "hf", "sf", "E",
+  "count"}, "aic": {"Xdline", "xrefdline", "Hf", "sf"}, "fir_cache"}``, the
+  ABM's segment counter an int);
+- ``nlms_state_from_numpy`` (``NlmsState``: ``{"w", "buf"}``),
+  ``block_lms_state_from_numpy`` (``BlockLmsState``: ``{"w", "buf", "X",
+  "e", "counter"}``, the counter an int) and ``rls_state_from_numpy``
+  (``RlsState``: ``{"w", "buf", "P"}``).
 """
 
 from __future__ import annotations
@@ -53,7 +64,9 @@ from distantspeech_tpu_torch._device import resolve_device
 from distantspeech_tpu_torch.adaptive.aec import AecConfig, AecState
 from distantspeech_tpu_torch.adaptive.feature import DcNotchState, EmphasisState
 from distantspeech_tpu_torch.adaptive.flms import FlmsState
+from distantspeech_tpu_torch.adaptive.nlms import BlockLmsState, NlmsState, RlsState
 from distantspeech_tpu_torch.adaptive.subband import SubbandLmsState
+from distantspeech_tpu_torch.beamform.dios_gsc import DiosAbmState, DiosAicState, DiosGscConfig, DiosGscState
 from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, EnhanceState
 from distantspeech_tpu_torch.beamform.fdgsc import FdGscConfig, FdGscState
 from distantspeech_tpu_torch.beamform.fixed import FixedBeamformerConfig
@@ -62,6 +75,7 @@ from distantspeech_tpu_torch.beamform.mvdr import MvdrConfig, MvdrState
 from distantspeech_tpu_torch.beamform.pmwf import PmwfConfig
 from distantspeech_tpu_torch.beamform.subband_gsc import SubbandGscConfig, SubbandGscCoreState, SubbandGscState
 from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig, TdGscState
+from distantspeech_tpu_torch.coherence.enhance import BinauralConfig
 from distantspeech_tpu_torch.coherence.msc import MscState
 from distantspeech_tpu_torch.derev.wpe import WpeConfig, WpeState
 from distantspeech_tpu_torch.doa.idoa import IdoaConfig, IdoaState
@@ -73,6 +87,7 @@ from distantspeech_tpu_torch.noise.mcra import McraState
 from distantspeech_tpu_torch.noise.mcra2 import Mcra2Config, Mcra2State
 from distantspeech_tpu_torch.noise.mcspp import McSppState
 from distantspeech_tpu_torch.noise.omlsa import OmlsaState
+from distantspeech_tpu_torch.postfilter.mccowan import McCowanConfig
 from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, FullStackState
 from distantspeech_tpu_torch.transform import StftConfig, SubbandConfig
 
@@ -187,7 +202,7 @@ def _subband_lms_state(f: Mapping[str, Any], dev) -> SubbandLmsState:
 
 def _mcspp_state(sp: Mapping[str, Any], dev) -> McSppState:
     cdr = sp["mccdr"]
-    msc = MscState(Pxii=_tensor(cdr["msc"]["Pxii"], dev), Pxij=_tensor(cdr["msc"]["Pxij"], dev))
+    msc = msc_state_from_numpy(cdr["msc"], dev)
     return McSppState(Phi_yy=_tensor(sp["Phi_yy"], dev), Phi_vv=_tensor(sp["Phi_vv"], dev),
                       mccdr=McCdrState(msc=msc, mcra=_mcra_state(cdr["mcra"], dev)), frm_cnt=int(sp["frm_cnt"]))
 
@@ -258,3 +273,46 @@ def idoa_config_from_dict(d: Mapping[str, Any]) -> IdoaConfig:
 def idoa_state_from_numpy(d: Mapping[str, Any], device=None) -> IdoaState:
     dev = resolve_device(device)
     return IdoaState(**{k: _tensor(d[k], dev) for k in IdoaState._fields})
+
+
+def binaural_config_from_dict(d: Mapping[str, Any]) -> BinauralConfig:
+    return BinauralConfig(**d)
+
+
+def msc_state_from_numpy(d: Mapping[str, Any], device=None) -> MscState:
+    dev = resolve_device(device)
+    return MscState(Pxii=_tensor(d["Pxii"], dev), Pxij=_tensor(d["Pxij"], dev))
+
+
+def mccowan_config_from_dict(d: Mapping[str, Any]) -> McCowanConfig:
+    return McCowanConfig(**d)
+
+
+def dios_gsc_config_from_dict(d: Mapping[str, Any]) -> DiosGscConfig:
+    return DiosGscConfig(**d)
+
+
+def dios_gsc_state_from_numpy(d: Mapping[str, Any], device=None) -> DiosGscState:
+    dev = resolve_device(device)
+    abm, aic = d["abm"], d["aic"]
+    return DiosGscState(
+        abm=DiosAbmState(**{k: _tensor(abm[k], dev) for k in ("Xdline", "xrefdline", "hf", "sf", "E")},
+                         count=int(abm["count"])),
+        aic=DiosAicState(**{k: _tensor(aic[k], dev) for k in DiosAicState._fields}),
+        fir_cache=_tensor(d["fir_cache"], dev),
+    )
+
+
+def nlms_state_from_numpy(d: Mapping[str, Any], device=None) -> NlmsState:
+    dev = resolve_device(device)
+    return NlmsState(**{k: _tensor(d[k], dev) for k in NlmsState._fields})
+
+
+def block_lms_state_from_numpy(d: Mapping[str, Any], device=None) -> BlockLmsState:
+    dev = resolve_device(device)
+    return BlockLmsState(**{k: _tensor(d[k], dev) for k in ("w", "buf", "X", "e")}, counter=int(d["counter"]))
+
+
+def rls_state_from_numpy(d: Mapping[str, Any], device=None) -> RlsState:
+    dev = resolve_device(device)
+    return RlsState(**{k: _tensor(d[k], dev) for k in RlsState._fields})

@@ -29,7 +29,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from distantspeech_tpu_torch._device import resolve_device
+from distantspeech_tpu_torch._device import check_unroll, resolve_device
 from distantspeech_tpu_torch.ops import cuda_mcra
 
 
@@ -135,9 +135,11 @@ def mcra_run_plain(cfg: McraConfig, Y_tf: torch.Tensor, return_sr: bool = False)
     return tuple(torch.stack(o) for o in zip(*outs))
 
 
-def mcra_run(cfg: McraConfig, Y_tf: torch.Tensor, return_sr: bool = False):
+def mcra_run(cfg: McraConfig, Y_tf: torch.Tensor, unroll: int = 8, return_sr: bool = False):
     """``mcra_run_plain``'s result: on a CPU tensor that function, on a CUDA
-    tensor the MCRA lane kernel (float32), one launch a call."""
+    tensor the MCRA lane kernel (float32), one launch a call.  ``unroll`` is
+    JAX's scan hint, inert here (``_device.check_unroll``)."""
+    check_unroll(unroll)
     if Y_tf.device.type == "cpu":
         return mcra_run_plain(cfg, Y_tf, return_sr)
     return cuda_mcra.mcra_frames(cfg, Y_tf, _freq_smooth(Y_tf, cfg.b), return_sr)

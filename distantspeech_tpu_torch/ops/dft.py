@@ -40,6 +40,13 @@ def _inv_mat(n: int) -> np.ndarray:
     return np.concatenate([A, B], axis=0)  # [2F, n]
 
 
+@lru_cache(maxsize=None)
+def _mat_on(inverse: bool, n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The DFT matrix on ``device``, copied there once (a frame loop calls
+    ``rdft`` / ``irdft`` every step)."""
+    return torch.as_tensor(_inv_mat(n) if inverse else _fwd_mat(n), dtype=dtype, device=device)
+
+
 def _check_last(t: torch.Tensor, axis: int, what: str) -> None:
     if axis not in (-1, t.ndim - 1):
         raise ValueError(f"{what} only supports the last axis, got axis={axis} of a {t.ndim}-d input")
@@ -58,7 +65,7 @@ def rdft(x: torch.Tensor, n: int | None = None, axis: int = -1) -> torch.Tensor:
         x = torch.nn.functional.pad(x, (0, n - L))
     elif L > n:
         x = x[..., :n]
-    Y = x @ torch.as_tensor(_fwd_mat(n), dtype=x.dtype, device=x.device)
+    Y = x @ _mat_on(False, n, x.dtype, x.device)
     F = n // 2 + 1
     return torch.complex(Y[..., :F], Y[..., F:])
 
@@ -71,5 +78,4 @@ def irdft(X: torch.Tensor, n: int | None = None, axis: int = -1) -> torch.Tensor
         n = 2 * (X.shape[-1] - 1)
     if n > MATMUL_MAX_N or X.shape[-1] != n // 2 + 1:
         return torch.fft.irfft(X, n=n)
-    AB = torch.as_tensor(_inv_mat(n), dtype=X.real.dtype, device=X.device)
-    return torch.cat([X.real, X.imag], dim=-1) @ AB
+    return torch.cat([X.real, X.imag], dim=-1) @ _mat_on(True, n, X.real.dtype, X.device)

@@ -27,7 +27,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from distantspeech_tpu_torch._device import resolve_device
+from distantspeech_tpu_torch._device import check_unroll, resolve_device
 from distantspeech_tpu_torch.adaptive.aec import AecConfig, AecState, aec_init, aec_step
 from distantspeech_tpu_torch.adaptive.feature import DcNotchState, dc_notch, dc_notch_init
 from distantspeech_tpu_torch.array.alignment import time_alignment_filters
@@ -104,7 +104,7 @@ def full_stack_step(
 
 def full_stack_process(
     x, far_end, geometry: ArrayGeometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0),
-    cfg: FullStackConfig = FullStackConfig(), backend: str = "scan", device=None,
+    cfg: FullStackConfig = FullStackConfig(), unroll: int = 1, backend: str = "scan", device=None,
 ):
     """Offline run of the full stack.  x: [..., M, S]; far_end: [..., S].
     Returns (enhanced [..., S'], kws_clean [..., S'], p [..., T, F]) with
@@ -113,7 +113,9 @@ def full_stack_process(
     backend: 'scan' (the per-frame ``full_stack_step`` loop, any batch
     shape) or 'fused' (x [B, M, S]: kernels K7, K6 and K5 chained, each over
     the whole utterance; exactly the scan's math, since the stages only feed
-    forward).  On CPU tensors 'fused' runs the kernels' plain versions."""
+    forward).  On CPU tensors 'fused' runs the kernels' plain versions.
+    ``unroll`` is JAX's scan hint, inert here (``_device.check_unroll``)."""
+    check_unroll(unroll)
     if cfg.aec.block_len != cfg.frame_len:
         raise ValueError("aec.block_len must equal frame_len for the composed stack")
     dev = resolve_device(device)

@@ -17,7 +17,12 @@ K1), at B=64 x 8 mics x 4 s; B2 (TDGSC ``fused``, core and postfilter), B3
 4 s; B6 (``doa.srp_process`` ``fused``: the STFT, K10, the MCRA lane
 kernel) at B=8 x 8 mics x 4 s; B7 (``doa.wpe_srp_process`` ``fused``:
 BASELINE config 4, WPE of every channel, then B6's stages) at B=8 x 8 mics x
-4 s of ``chip_smoke.reverb_scene``.  The kernels alone: K6 (``fused_kws``) on
+4 s of ``chip_smoke.reverb_scene``; B8 (``coherence.binaural_process``,
+B=32 x 2 mics), B9 (DS ``fixed_process`` -> ``postfilter.mccowan_process``,
+B=32 x 4), B10 (``beamform.dios_gsc_process``, B=256 x 4; timed as the
+median of 3 calls after a warm one, as it takes seconds) and B11
+(``sim.batched_propagation``, 64 sources x 8 mics), all 4 s of
+``chip_smoke.py`` phase 17's inputs.  The kernels alone: K6 (``fused_kws``) on
 the kws inputs of mics 0/1 of B3's echo scene; K1 (``fused_mvdr_scan``),
 with and without the OM-LSA gain, on B1's spectra, gate and MCRA tracks,
 and with the gain at 12, 16 and 32 mics (``K1 M=12`` ...); K2
@@ -41,11 +46,15 @@ own process:
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 from pathlib import Path
 
 import numpy as np
+
+
+SLOW = {"B10"}  # paths of seconds a call, timed by the median of 3 calls instead of iteration pairs
 
 
 def trace_summary(prof, top: int = 5) -> dict:
@@ -105,7 +114,7 @@ def main() -> int:
     from distantspeech_tpu_torch.ops import cuda_mvdr as cm
     from distantspeech_tpu_torch.ops import cuda_srp as cr
     from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, full_stack_process
-    from distantspeech_tpu_torch.runtime.profiling import benchmark, trace
+    from distantspeech_tpu_torch.runtime.profiling import benchmark, cuda_seconds, trace
     from distantspeech_tpu_torch.transform import analysis
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -117,6 +126,13 @@ def main() -> int:
     on = lambda a: torch.as_tensor(a, device=dev)
     x = lambda: on(cs.scene(B, M, S, seed=4)[0])
     echo = lambda: [on(a) for a in cs.echo_scene(B, M, S, seed=8)[:2]]
+    fused = lambda fn: functools.partial(fn, backend="fused")  # backend follows JAX's unroll: by keyword
+
+    def b11():  # imported here: a parent tree given by --root may predate the room simulator
+        from distantspeech_tpu_torch.sim import batched_propagation
+
+        sig, srcs, mics, cfg = cs.b11_scene(4)
+        return functools.partial(batched_propagation, device=dev), on(sig), srcs, mics, cfg
 
     def k6():
         kcfg = FullStackConfig(n_mics=M).kws
@@ -155,14 +171,17 @@ def main() -> int:
         "flagship fused": lambda: (enhance_process, on(cs.scene(64, 8, S, seed=2)[0]), geom8, look8, EnhanceConfig(),
                                    "fused", "rank1"),
         "B1": lambda: (enhance_process, on(cs.scene(64, 8, S, seed=2)[0]), geom8, look8, EnhanceConfig(), "pallas"),
-        "B2 core": lambda: (tdgsc_process, x(), geom, look, TdGscConfig(n_mics=M), "fused"),
-        "B2 pf": lambda: (tdgsc_process, x(), geom, look, TdGscConfig(n_mics=M, postfilter=True), "fused"),
-        "B3": lambda: (full_stack_process, *echo()[::-1], geom, look, FullStackConfig(n_mics=M), "fused"),
-        "B4": lambda: (fdgsc_process, x(), geom, look, FdGscConfig(n_mics=M), True, "fused"),
-        "B5": lambda: (subband_gsc_process, on(cs.scene(B, M, S, seed=11)[0]), geom, look,
-                       SubbandGscConfig(n_mics=M), "fused"),
+        "B2 core": lambda: (fused(tdgsc_process), x(), geom, look, TdGscConfig(n_mics=M)),
+        "B2 pf": lambda: (fused(tdgsc_process), x(), geom, look, TdGscConfig(n_mics=M, postfilter=True)),
+        "B3": lambda: (fused(full_stack_process), *echo()[::-1], geom, look, FullStackConfig(n_mics=M)),
+        "B4": lambda: (fused(fdgsc_process), x(), geom, look, FdGscConfig(n_mics=M), True),
+        "B5": lambda: (fused(subband_gsc_process), on(cs.scene(B, M, S, seed=11)[0]), geom, look,
+                       SubbandGscConfig(n_mics=M)),
         "B6": lambda: (srp_process, on(cs.doa_scene(8, 8, S, seed=13)), geom8, SrpConfig(), True, "fused"),
         "B7": lambda: (wpe_srp_process, on(cs.reverb_scene(8, 8, S, seed=16)), geom8, None, SrpConfig(), True, "fused"),
+        **{name: (lambda name=name: (cs.slice_f_rows(dev)[name][2], on(cs.slice_f_scene(name, 4))))
+           for name in ("B8", "B9", "B10")},
+        "B11": b11,
     }
     kernels = {
         "K6": k6,
@@ -177,7 +196,11 @@ def main() -> int:
     ms, traces = {}, {}
     for name in args.paths or list(paths):
         fn, *a = {**paths, **kernels}[name]()
-        ms[name] = benchmark(fn, *a)["per_call_s"] * 1e3
+        if name in SLOW:  # seconds a call: the median of 3 after a warm one
+            fn(*a)
+            ms[name] = float(np.median([cuda_seconds(fn, *a) for _ in range(3)])) * 1e3
+        else:
+            ms[name] = benchmark(fn, *a)["per_call_s"] * 1e3
         if args.trace:
             with trace(str(Path(args.trace) / name.replace(" ", "_"))) as prof:
                 fn(*a)

@@ -47,7 +47,7 @@ def test_cpu_tensors_take_the_plain_version():
     Y = torch.as_tensor(_power(20, (4,), cfg.half_bin, seed=6), dtype=torch.float32)
     cuda_mcra.LAUNCHES["mcra_run"] = 0
     for return_sr in (False, True):
-        for g, w in zip(tmcra.mcra_run(cfg, Y, return_sr), tmcra.mcra_run_plain(cfg, Y, return_sr)):
+        for g, w in zip(tmcra.mcra_run(cfg, Y, return_sr=return_sr), tmcra.mcra_run_plain(cfg, Y, return_sr)):
             assert torch.equal(g, w)
     assert cuda_mcra.LAUNCHES["mcra_run"] == 0
 

@@ -24,7 +24,14 @@ from distantspeech_tpu_torch.beamform import (
     gsc_process_time,
     pmwf_process,
 )
+from distantspeech_tpu_torch.adaptive import block_lms_init, nlms_filter, nlms_init, rls_filter, rls_init
+from distantspeech_tpu_torch.beamform.dios_gsc import DiosGscConfig, dios_abm_init, dios_aic_init, dios_gsc_process
 from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, enhance_process
+from distantspeech_tpu_torch.coherence.enhance import binaural_process
+from distantspeech_tpu_torch.postfilter import mccowan_process
+from distantspeech_tpu_torch.sim import batched_propagation, batched_rir
+from distantspeech_tpu_torch.transform.griffin_lim import griffin_lim
+from distantspeech_tpu_torch.transform.multirate import overlap_save
 from distantspeech_tpu_torch.beamform.fdgsc import FdGscConfig, fdgsc_process
 from distantspeech_tpu_torch.beamform.mvdr import mvdr_process
 from distantspeech_tpu_torch.beamform.subband_gsc import SubbandGscConfig, subband_gsc_process
@@ -43,6 +50,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "distantspeech_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
     (ROOT / "scripts").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "distantspeech_tpu")
+# the subpackages and modules of the latest slice, which the import scan must reach
+NEW_MODULES = tuple(f"distantspeech_tpu_torch.{m}" for m in (
+    "sim", "sim.room", "sim.ism", "postfilter", "postfilter.mccowan", "coherence.weights", "coherence.enhance",
+    "beamform.dios_gsc", "adaptive.nlms", "transform.multirate", "transform.griffin_lim"))
 
 
 def _imported_modules(path):
@@ -62,7 +73,9 @@ def test_no_jax_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, pkgutil, importlib, distantspeech_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, 'distantspeech_tpu_torch.'): importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'distantspeech_tpu_torch.')]\n"
+        "for name in names: importlib.import_module(name)\n"
+        f"assert set({NEW_MODULES!r}) <= set(names), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'distantspeech_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -75,6 +88,7 @@ def test_the_card_is_the_default_device(monkeypatch):
     x = np.zeros((8, 1280), np.float32)
     geom = ArrayGeometry.linear(8, 0.032)
     x4, geom4 = x[:4], ArrayGeometry.linear(4, 0.032)
+    geom2 = ArrayGeometry.linear(2, 0.032)
     for call in (
         lambda: resolve_device(),
         lambda: resolve_device("cuda"),
@@ -115,6 +129,20 @@ def test_the_card_is_the_default_device(monkeypatch):
         lambda: mcra2_init(Mcra2Config()),
         lambda: idoa_init(IdoaConfig(), 4),
         lambda: subband_synthesis_init((), SubbandConfig()),
+        lambda: binaural_process(x[:2], geom2),
+        lambda: mccowan_process(x4, x4[0], geom4),
+        lambda: dios_gsc_process(x4, np.ones((4, 81))),
+        lambda: dios_abm_init(DiosGscConfig()),
+        lambda: dios_aic_init(DiosGscConfig()),
+        lambda: nlms_filter(x[0], x[1], 16),
+        lambda: rls_filter(x[0], x[1], 16),
+        lambda: nlms_init(16),
+        lambda: block_lms_init(16, 8),
+        lambda: rls_init(16),
+        lambda: overlap_save(x[0], np.ones(9)),
+        lambda: griffin_lim(np.ones((10, 129))),
+        lambda: batched_rir(np.array([[1.0, 1.0, 1.0]]), np.array([[2.0, 1.5, 1.0]])),
+        lambda: batched_propagation(x[:1], np.array([[1.0, 1.0, 1.0]]), np.array([[2.0, 1.5, 1.0]])),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
