@@ -157,10 +157,20 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    the bar's input, to twice JAX's own float32-vs-float64 gap:
    ``SLICE_F_JAX_GAP``), and B11's RIRs and one source's propagation held
    to the host image-source model at JAX's tolerances;
-18. with ``--parent DIR`` (a checkout of the parent commit), K2 and K10
+18. the runtime (``smoke_slice_g1``), which runs no kernel of its own but
+   the examples' fused full stack: every ``STREAM_FACTORIES`` stream under
+   JAX's latency protocol (8 mics, 60 chunks of 1,024 at 16 kHz), its
+   latency report, torch calls and host synchronisations a chunk, beside
+   the identity step's transport floor; each stream against its offline
+   path on the card (``STREAM_BARS``); the enhance and full-stack streams
+   resumed from a checkpoint, bit-equal; the CLI for every pipeline and
+   every ``--stream``; and every ``examples_torch`` script, with
+   ``run_full_stack.py --fused`` launching K7, K6 and K5 with the
+   postfilter;
+19. with ``--parent DIR`` (a checkout of the parent commit), K2 and K10
    alone and the flagship ``fused`` path and B6, timed in the parent and in
    this tree in turns (``scripts/path_times.py``);
-19. the ``kernels`` JSON line, the card line, and the final JSON line.
+20. the ``kernels`` JSON line, the card line, and the final JSON line.
 
 K1, K2 and K6 also print a chain floor beside their bound: T frames times
 the longest dependent chain of one frame on the kernel's layout, counted
@@ -391,6 +401,7 @@ def main() -> int:
     smoke_gate_rel(dev, card)
     smoke_slice_e(dev, card, seconds=4)
     smoke_slice_f(dev, card, seconds=4)
+    smoke_slice_g1(dev, card)
     if args.parent:
         parent_times(args.parent)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included", flush=True)
@@ -2574,6 +2585,207 @@ def smoke_slice_f(dev, card: str, seconds: int) -> None:
                                       f"of max < {PROPAGATION_HOST_TOL:g}")
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
+
+
+# phase 18: JAX's streaming latency protocol (benchmarks/latency.py): an 8-mic linear array at 0.032 m,
+# chunks of 1,024 at 16 kHz, 60 chunks of seed-0 standard normal x 0.1, the report without 2 warm chunks
+STREAM_MICS, STREAM_CHUNK, STREAM_CHUNKS, STREAM_WARMUP = 8, 1024, 60, 2
+# each stream against its offline path on the card, max |stream - offline| / max |offline|: the bars of
+# JAX's own streaming-vs-offline tests (tests/test_runtime_stream.py), enhance 1e-5, the GSC family and
+# WPE 1e-4, TDGSC and the full stack 1e-6, at those tests' 4 mics (3 and the far end for the full stack),
+# on 16 chunks.  At 8 mics on white noise the subband GSC's float32 McSpp flips its speech decisions
+# between any two orderings of the same sums (JAX's own stream and offline path differ by 0.18 there)
+STREAM_BARS = {"enhance": 1e-5, "gsc": 1e-4, "fdgsc": 1e-4, "subband_gsc": 1e-4, "wpe": 1e-4, "tdgsc": 1e-6,
+               "full_stack": 1e-6}
+STREAM_BAR_MICS, STREAM_BAR_CHUNKS = 4, 16
+CLI_PIPELINES = ("fixed_ds", "fixed_sd", "mvdr", "enhance", "pmwf", "gsc", "gsc_time", "tdgsc", "fdgsc",
+                 "subband_gsc", "dios_gsc", "mccowan", "wpe", "kws", "binaural")
+
+
+def stream_geometry(name, rows=STREAM_MICS):
+    """A linear array at 0.032 m for input rows ``rows``: every row a mic, or the last the far end for the
+    full stack."""
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+
+    return ArrayGeometry.linear(rows - (name == "full_stack"), 0.032, fs=FS)
+
+
+def stream_offline(name, x, dev):
+    """The offline path the stream ``name`` twins, on x [M, S] (the full stack: rows 0..M-2 mics, the last
+    row the far end), on ``dev``: [S']."""
+    from distantspeech_tpu_torch.beamform import (
+        FdGscConfig, GscConfig, SubbandGscConfig, TdGscConfig, fdgsc_process, gsc_process, subband_gsc_process,
+        tdgsc_process,
+    )
+    from distantspeech_tpu_torch.beamform.enhance import enhance_process
+    from distantspeech_tpu_torch.derev import WpeConfig, wpe_process
+    from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, full_stack_process
+
+    M = x.shape[0]
+    geom, ang = stream_geometry(name, M), (np.pi / 2, 0.0)
+    if name == "enhance":
+        return enhance_process(x, geom, (90.0, 0.0), backend="scan", device=dev)
+    if name == "gsc":
+        return gsc_process(x, geom, ang, GscConfig(n_mics=M, normalize_aic=True, spp_rel_diag=1e-5), device=dev)
+    if name == "fdgsc":
+        return fdgsc_process(x, geom, ang, FdGscConfig(n_mics=M), device=dev)[0]
+    if name == "subband_gsc":
+        return subband_gsc_process(x, geom, ang, SubbandGscConfig(n_mics=M), device=dev)[0]
+    if name == "wpe":
+        return wpe_process(x, WpeConfig(n_channels=M), device=dev)
+    if name == "tdgsc":
+        return tdgsc_process(x, geom, ang, TdGscConfig(n_mics=M), device=dev)[0]
+    return full_stack_process(x[:-1], x[-1], geom, ang, FullStackConfig(n_mics=M - 1), backend="scan",
+                              device=dev)[0]
+
+
+def host_syncs(proc, chunk):
+    """The host synchronisations of one chunk through ``proc``, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` flags them: (count, {site: count})."""
+    import collections
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            proc.process_chunk(chunk)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                                if "synchroniz" in str(w.message))
+    return sum(sites.values()), dict(sites)
+
+
+def run_script(path, argv):
+    """Run a script in this process as ``python path *argv`` from its own directory; returns (seconds, the
+    last line it printed)."""
+    import contextlib
+    import io
+    import runpy
+
+    saved_argv, saved_path, saved_cwd = sys.argv, list(sys.path), os.getcwd()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        sys.argv = [path, *argv]
+        sys.path.insert(0, os.path.dirname(path))
+        os.chdir(os.path.dirname(path))
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv, sys.path[:] = saved_argv, saved_path
+        os.chdir(saved_cwd)
+    lines = out.getvalue().strip().splitlines()
+    return time.perf_counter() - t0, lines[-1] if lines else ""
+
+
+def smoke_slice_g1(dev, card: str) -> None:
+    """Phase 18: the runtime.  (1) Every ``STREAM_FACTORIES`` stream under JAX's latency protocol, with the
+    identity step's transport floor: the latency report, the torch calls and the host synchronisations of a
+    steady chunk; finite outputs, positive p50s.  (2) Each stream against its offline path on the card
+    (``STREAM_BARS``, at ``STREAM_BAR_MICS``).  (3) The enhance and full-stack streams checkpointed after 30 chunks and resumed in a
+    fresh processor: bit-equal to the uninterrupted stream.  (4) The CLI in this process, every offline
+    pipeline and ``--stream`` for every factory, on a 4-mic 4 s wav.  (5) Every ``examples_torch`` script
+    in this process, and ``run_full_stack.py --fused`` launching K7, K6 and K5 with its postfilter."""
+    import tempfile
+
+    import torch
+
+    from distantspeech_tpu_torch.runtime.checkpoint import load_state, save_state
+    from distantspeech_tpu_torch.runtime.cli import build_parser, run
+    from distantspeech_tpu_torch.runtime.io import load_audio, save_audio
+    from distantspeech_tpu_torch.runtime.streaming import STREAM_FACTORIES, StreamingProcessor, wav_chunks
+
+    tag = f"[{card}]"
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    x = (np.random.default_rng(0).standard_normal((STREAM_MICS, STREAM_CHUNK * STREAM_CHUNKS)) * 0.1).astype(
+        np.float32)
+    chunks_of = lambda a: list(wav_chunks(a, STREAM_CHUNK))
+    chunks = chunks_of(x)
+    factory = lambda name, rows=STREAM_MICS: STREAM_FACTORIES[name](stream_geometry(name, rows), (90.0, 0.0),
+                                                                    chunk_size=STREAM_CHUNK, fs=FS, device=dev)
+
+    # ---- 1. latency
+    streamed = {}
+    for name in sorted(STREAM_FACTORIES):
+        proc = factory(name)
+        out = proc.run(chunks)
+        check(out is not None and out.shape == (x.shape[-1],) and bool(np.isfinite(out).all()),
+              f"{name} stream: finite {out.shape}")
+        rep = proc.latency_report(skip_warmup=STREAM_WARMUP)
+        check(rep["p50_ms"] is not None and rep["p50_ms"] > 0, f"{name} stream: p50 {rep['p50_ms']} ms > 0")
+        streamed[name] = out
+        calls = torch_calls(proc.step, proc.state, torch.as_tensor(chunks[0], device=dev))
+        syncs, sites = host_syncs(proc, chunks[0]) if on_card else (None, {})
+        print(json.dumps({"stream": name, **rep, "torch_calls_a_chunk": calls, "host_syncs_a_chunk": syncs,
+                          "sync_sites": sites, "card": card}), flush=True)
+    # ---- 2. stream = offline, at JAX's streaming tests' 4 mics
+    xb = np.ascontiguousarray(x[:STREAM_BAR_MICS, : STREAM_BAR_CHUNKS * STREAM_CHUNK])
+    for name in sorted(STREAM_FACTORIES):
+        out = factory(name, STREAM_BAR_MICS).run(chunks_of(xb))
+        want = stream_offline(name, torch.as_tensor(xb, device=dev), dev).cpu().numpy()
+        n = min(len(out), len(want))
+        gap = float(np.max(np.abs(out[:n] - want[:n])) / np.max(np.abs(want[:n])))
+        check(gap <= STREAM_BARS[name], f"{name} stream vs its offline path on the card, {STREAM_BAR_MICS} rows: "
+                                        f"{gap:.3e} of max|offline| <= {STREAM_BARS[name]:g} (over {n} samples)")
+    ident = StreamingProcessor(lambda s, c: (s, c.mean(dim=0)), (), chunk_size=STREAM_CHUNK, fs=FS, device=dev)
+    check(ident.run(chunks) is not None, "identity stream ran")
+    rep = ident.latency_report(skip_warmup=STREAM_WARMUP)
+    syncs, sites = host_syncs(ident, chunks[0]) if on_card else (None, {})
+    print(json.dumps({"stream": "_identity_floor", **rep, "host_syncs_a_chunk": syncs, "sync_sites": sites,
+                      "card": card}), flush=True)
+
+    # ---- 3. checkpoint after 30 chunks, resume in a fresh processor on the card
+    half = STREAM_CHUNKS // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("enhance", "full_stack"):
+            first = factory(name)
+            first.run(chunks[:half])
+            path = os.path.join(tmp, f"{name}.npz")
+            save_state(path, first.state)
+            resumed = factory(name)
+            resumed.state = load_state(path, resumed.state)
+            tail = resumed.run(chunks[half:])
+            want = streamed[name][half * STREAM_CHUNK:]
+            diff = int(np.sum(tail != want))
+            check(diff == 0, f"{name} stream resumed from a checkpoint after {half} chunks: {diff} of {len(want)} "
+                             f"samples differ from the uninterrupted stream (bit-equal)")
+
+        # ---- 4. the CLI in this process, on a 4-mic 4 s wav
+        t_cli = time.perf_counter()
+        inp = os.path.join(tmp, "in.wav")
+        save_audio(inp, np.ascontiguousarray(x[:4, : 4 * FS].T))
+        cpu = [] if on_card else ["--cpu"]
+        for pipeline in CLI_PIPELINES + tuple(f"{n} --stream" for n in sorted(STREAM_FACTORIES)):
+            name, *stream = pipeline.split()
+            outp = os.path.join(tmp, f"{name}{'_stream' if stream else ''}.wav")
+            t0 = time.perf_counter()
+            y = run(build_parser().parse_args([inp, outp, "--pipeline", name, *stream, *cpu]))
+            ok = bool(np.isfinite(y).all()) and np.isfinite(load_audio(outp)).all()
+            if stream:
+                with open(outp + ".latency.json") as f:
+                    ok = ok and json.load(f)["chunks"] > 0
+            check(ok, f"CLI --pipeline {pipeline}: finite {y.shape}, the wav{' and the latency JSON' if stream else ''}"
+                      f" written, {time.perf_counter() - t0:.2f} s {tag}")
+        print(f"phase 18 CLI: {time.perf_counter() - t_cli:.1f} s", flush=True)
+
+    # ---- 5. the examples in this process
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch")
+    scripts = sorted(f for f in os.listdir(here) if f.endswith(".py") and not f.startswith("_"))
+    check(len(scripts) == 15, f"examples_torch holds {len(scripts)} scripts")
+    for script, extra in [(s, []) for s in scripts] + [("run_full_stack.py", ["--fused"])]:
+        reset_launches()
+        seconds, last = run_script(os.path.join(here, script), extra + cpu)
+        launched = {k: v for k, v in launch_counts().items() if v}
+        print(f"example {script} {' '.join(extra)}: {seconds:.2f} s, launches {launched}; {last} {tag}", flush=True)
+        if extra and on_card:
+            check(all(launched.get(k, 0) >= 1 for k in ("fused_aec", "fused_kws", "fused_tdgsc")),
+                  f"run_full_stack.py --fused launched K7, K6 and K5 (postfilter): {launched}")
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 if __name__ == "__main__":
     sys.exit(main())

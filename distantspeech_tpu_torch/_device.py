@@ -8,6 +8,7 @@ vets the JAX scan hint that the entry points accept at JAX's position.
 
 from __future__ import annotations
 
+import functools
 import operator
 
 import torch
@@ -41,3 +42,18 @@ def wrapper_input(x) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
     return torch.as_tensor(x, device=resolve_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _scalar_on(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(value, dtype=dtype, device=device)
+
+
+def scalar_on(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``torch.as_tensor(value, dtype=dtype, device=device)``.  A Python number
+    is copied to the device once per (value, dtype, device), not once a
+    frame: each copy from the host is a synchronous transfer that waits for
+    the device.  The tensor returned is shared, so it is never written."""
+    if isinstance(value, torch.Tensor):
+        return torch.as_tensor(value, dtype=dtype, device=device)
+    return _scalar_on(value, dtype, device)

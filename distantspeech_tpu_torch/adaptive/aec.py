@@ -14,12 +14,13 @@ branch.
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from distantspeech_tpu_torch._device import resolve_device
+from distantspeech_tpu_torch._device import resolve_device, scalar_on
 from distantspeech_tpu_torch.adaptive.feature import EmphasisState, de_emphasis, emphasis_init, pre_emphasis
 from distantspeech_tpu_torch.adaptive.mdf import _complex, _constrain, mdf_adjust_prop
 from distantspeech_tpu_torch.ops.delay import delay_samples
@@ -59,6 +60,12 @@ class AecConfig:
     def window(self) -> np.ndarray:
         n = np.arange(self.n_fft)
         return 0.5 - 0.5 * np.cos(2.0 * np.pi * n / self.n_fft)
+
+
+@lru_cache(maxsize=None)
+def _window_on(cfg: AecConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The foreground cross-fade window on ``device``, copied there once."""
+    return torch.as_tensor(cfg.window(), dtype=dtype, device=device)
 
 
 class AecState(NamedTuple):
@@ -159,7 +166,7 @@ def aec_step(
         Dvar1 = torch.where(upd, zero, Dvar1)
         Dvar2 = torch.where(upd, zero, Dvar2)
         foreground = torch.where(upd[..., None, None], state.W, state.foreground)
-        win = torch.as_tensor(cfg.window(), dtype=y_f.dtype, device=y_f.device)
+        win = _window_on(cfg, y_f.dtype, y_f.device)
         y_f = torch.where(upd[..., None], win[L:] * y_f + win[:L] * y_b, y_f)
         out = d - y_f
     else:
@@ -197,7 +204,7 @@ def aec_step(
     if cfg.constrain:
         grad = _constrain(grad, n_fft, L)
 
-    gate = torch.as_tensor(update, dtype=P.dtype, device=P.device)
+    gate = scalar_on(update, P.dtype, P.device)
     if cfg.prop:
         W = state.W + gate * mdf_adjust_prop(state.W)[..., :, None] * mu_opt[..., None, :] * grad
     else:

@@ -17,12 +17,13 @@ same semantics:
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from distantspeech_tpu_torch._device import resolve_device
+from distantspeech_tpu_torch._device import resolve_device, scalar_on
 from distantspeech_tpu_torch.ops.delay import delay_samples
 from distantspeech_tpu_torch.ops.dft import irdft, rdft
 
@@ -63,6 +64,12 @@ class FlmsConfig:
     def window(self) -> np.ndarray:
         n = np.arange(self.n_fft)
         return 0.5 - 0.5 * np.cos(2.0 * np.pi * n / self.n_fft)
+
+
+@lru_cache(maxsize=None)
+def _window_on(cfg: FlmsConfig, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The two-path cross-fade window on ``device``, copied there once."""
+    return torch.as_tensor(cfg.window(), dtype=dtype, device=device)
 
 
 class FlmsState(NamedTuple):
@@ -131,7 +138,7 @@ def flms_step(
         # transfer logic: is the background 3 dB better?
         ratio = torch.sum(e_f.abs(), dim=-1) / (torch.sum(e.abs(), dim=-1) + 1e-6)
         transfer = 10.0 * torch.log10(ratio + 1e-6) > 3.0
-        win = torch.as_tensor(cfg.window(), dtype=y.dtype, device=y.device)
+        win = _window_on(cfg, y.dtype, y.device)
         y_blend = win[L:] * y_f + win[:L] * y
         y_out = torch.where(transfer[..., None], y_blend, y_f)
         foreground = torch.where(transfer[..., None, None], state.W, state.foreground)
@@ -147,7 +154,7 @@ def flms_step(
         g1[..., -hop:] = 0.0
         grad = rdft(g1, n=n_fft)
 
-    gate = torch.as_tensor(update, dtype=P.dtype, device=P.device)
+    gate = scalar_on(update, P.dtype, P.device)
     W = state.W + gate * p * 2.0 * cfg.mu * grad
 
     w = irdft(W, n=n_fft)[..., :L]

@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from distantspeech_tpu_torch._device import resolve_device
+from distantspeech_tpu_torch._device import resolve_device, scalar_on
 from distantspeech_tpu_torch.ops.delay import delay_samples
 from distantspeech_tpu_torch.ops.dft import irdft, rdft
 
@@ -118,7 +118,7 @@ def mdf_step(
     if cfg.constrain:
         grad = _constrain(grad, n_fft, L)
 
-    gate = torch.as_tensor(update, dtype=P.dtype, device=P.device)
+    gate = scalar_on(update, P.dtype, P.device)
     if cfg.prop:
         W = state.W + gate * mdf_adjust_prop(state.W)[..., :, None] * p * cfg.mu * grad
     else:

@@ -17,11 +17,13 @@ Both reuse ``FlmsState``.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from distantspeech_tpu_torch._device import scalar_on
 from distantspeech_tpu_torch.adaptive.flms import FlmsConfig, FlmsState
 from distantspeech_tpu_torch.ops.delay import delay_samples
 from distantspeech_tpu_torch.ops.dft import irdft, rdft
@@ -38,6 +40,12 @@ def bm_bounds(n_fft: int, deltax: float = 0.001) -> np.ndarray:
     ub[q + 2] = 0.05
     ub[q - 2] = 0.05
     return ub
+
+
+@lru_cache(maxsize=None)
+def _bounds_on(n_fft: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``bm_bounds`` on ``device``, copied there once."""
+    return torch.as_tensor(bm_bounds(n_fft), dtype=dtype, device=device)
 
 
 def _forward(cfg: FlmsConfig, state: FlmsState, x, d):
@@ -67,14 +75,14 @@ def bm_step(
     (state, (e [..., hop], w [..., 1, filter_len]))."""
     buf, P, e, grad, d_delay = _forward(cfg, state, x, d)
 
-    gate = torch.as_tensor(update, dtype=P.dtype, device=P.device)
+    gate = scalar_on(update, P.dtype, P.device)
     W = state.W + gate * p * cfg.mu * grad
 
     if cfg.constrain:
         w_full = irdft(W, n=cfg.n_fft)
         w_full[..., -cfg.hop :] = 0.0
         nb = cfg.n_fft // 2
-        ub = torch.as_tensor(bm_bounds(cfg.n_fft), dtype=w_full.dtype, device=w_full.device)
+        ub = _bounds_on(cfg.n_fft, w_full.dtype, w_full.device)
         clamped = torch.minimum(torch.clamp(w_full[..., :nb], min=-0.001), ub)
         W = rdft(torch.cat([clamped, w_full[..., nb:]], dim=-1), n=cfg.n_fft)
 
@@ -92,7 +100,7 @@ def aic_step(
     (state, (e [..., hop], w [..., C, filter_len]))."""
     buf, P, e, grad, d_delay = _forward(cfg, state, x, d)
 
-    gate = torch.as_tensor(update, dtype=P.dtype, device=P.device)
+    gate = scalar_on(update, P.dtype, P.device)
     W = state.W + gate * p * cfg.mu * grad
 
     if weight_norm:

@@ -9,6 +9,7 @@ kept in packed pair form [..., F, P], P = M (M - 1) / 2, in the order
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -43,7 +44,9 @@ def msc_init(n_ch: int, half_bin: int, batch_shape=(), cdtype=torch.complex64, d
     )
 
 
+@lru_cache(maxsize=None)
 def _pair_index_tensors(n_ch: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pair_indices`` on ``device``, copied there once."""
     return tuple(torch.as_tensor(a, device=device) for a in pair_indices(n_ch))
 
 

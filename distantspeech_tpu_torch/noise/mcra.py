@@ -104,12 +104,12 @@ def mcra_step(cfg: McraConfig, state: McraState, Y: torch.Tensor) -> Tuple[McraS
         else:
             p_upd = cfg.alpha_p * state.p + (1.0 - cfg.alpha_p) * I
         p_sel = torch.where(interior, p_upd, state.p)
-        p_sel[..., 0] = 0.0
+        p_sel[..., 0].fill_(0.0)  # fill_: a 0-d setitem would copy the scalar from the host
         lam_pre = state.lambda_d
     p_out = torch.clamp(p_sel, cfg.p_min, cfg.p_max)
 
     lam_pre = lam_pre.clone()
-    lam_pre[..., F - 1] = 1e-8
+    lam_pre[..., F - 1].fill_(1e-8)
     alpha_tilde = cfg.alpha_d + (1.0 - cfg.alpha_d) * p_out
     lam_out = alpha_tilde * lam_pre + (1.0 - alpha_tilde) * Y
 

@@ -81,7 +81,7 @@ def mcra2_step(cfg: Mcra2Config, state: Mcra2State, Y: torch.Tensor) -> Tuple[Mc
         lam_pre = state.lambda_d
 
     lam_pre = lam_pre.clone()
-    lam_pre[..., F - 1] = 1e-8
+    lam_pre[..., F - 1].fill_(1e-8)  # fill_: a 0-d setitem would copy the scalar from the host
     alpha_tilde = cfg.alpha_d + (1.0 - cfg.alpha_d) * p_out
     lam_out = alpha_tilde * lam_pre + (1.0 - alpha_tilde) * Y
 

@@ -104,6 +104,10 @@ def mcspp_step(cfg: McSppConfig, Fn: torch.Tensor, state: McSppState, y: torch.T
     neg = xi < 0.0
     # one repair inverse: inv(Phi_yy + diag * 1[frm_cnt < repair_frames])
     repair = gauss_jordan_inv(Phi_yy + diag if state.frm_cnt < cfg.repair_frames else Phi_yy)
+    # the unloaded repair of a covariance of lower rank than C (more mics
+    # than frames seen) can overflow in float32; such a lane keeps its
+    # loaded inverse rather than carry a NaN into the noise recursion
+    neg = neg & torch.isfinite(repair).all(dim=-1).all(dim=-1)
     Pinv = torch.where(neg[..., None, None], repair, Pinv)
     xi = torch.clamp(trace_mm(Pinv, Phi_yy).real - C, 1e-6, 1e8)
 

@@ -74,6 +74,13 @@ def _blocked_consts(A_key: tuple, Bv_key: tuple, k: int, n: int):
     return Rm, G, P, S1
 
 
+@lru_cache(maxsize=None)
+def _blocked_consts_on(A_key: tuple, Bv_key: tuple, k: int, n: int, dtype: torch.dtype, device: torch.device):
+    """``_blocked_consts`` on ``device``, copied there once (a streaming step
+    runs the blocked recurrence every chunk)."""
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device) for a in _blocked_consts(A_key, Bv_key, k, n))
+
+
 def constant_affine_blocked(A, Bv, x: torch.Tensor, s0: torch.Tensor, block: int = 256) -> torch.Tensor:
     """Solve s[n] = A s[n-1] + Bv x[n] with constant (A, Bv) over the last
     axis of x, s[-1] = s0; returns the full state sequence [..., N, k].
@@ -89,19 +96,16 @@ def constant_affine_blocked(A, Bv, x: torch.Tensor, s0: torch.Tensor, block: int
     batch = x.shape[:-1]
     key = (tuple(A.ravel()), tuple(Bv.ravel()))
 
-    def const(a):
-        return torch.as_tensor(a, dtype=x.dtype, device=x.device)
-
     def run_segment(xseg, s0, n):
-        Rm, G, P, S1 = _blocked_consts(key[0], key[1], k, n)
+        Rm, G, P, S1 = _blocked_consts_on(key[0], key[1], k, n, x.dtype, x.device)
         T = xseg.shape[-1] // n
         xb = xseg.reshape(*batch, T, n)
-        inblock = xb @ const(Rm)
-        c = xb @ const(G)  # [..., T, k]
-        Pb = const(P).expand(*batch, T, k, k)
+        inblock = xb @ Rm
+        c = xb @ G  # [..., T, k]
+        Pb = P.expand(*batch, T, k, k)
         m_ends = affine_recurrence(Pb, c, s0)  # [..., T, k]
         m_starts = torch.cat([s0[..., None, :], m_ends[..., :-1, :]], dim=-2)
-        states = (inblock + m_starts @ const(S1)).reshape(*batch, T * n, k)
+        states = (inblock + m_starts @ S1).reshape(*batch, T * n, k)
         return states, m_ends[..., -1, :]
 
     n_main = min(block, N)

@@ -17,6 +17,7 @@ are dropped), in the input's dtype.
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
@@ -91,13 +92,27 @@ def _sin_hi(cfg: StftConfig) -> int:
     return cfg.half_bin - 1 if cfg.n_fft % 2 == 0 else cfg.half_bin
 
 
+@lru_cache(maxsize=None)
+def _matrix_on(cfg: StftConfig, inverse: bool, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The packed windowed (inverse) rDFT matrix of ``stft_frames`` /
+    ``istft_frames`` on ``device``, copied there once (a frame loop calls
+    them every step, and each copy from the host waits for the device)."""
+    hi = _sin_hi(cfg)
+    if inverse:
+        A, B = _idft_matrices(cfg)
+        m = np.concatenate([A, B[1:hi]], axis=0)
+    else:
+        C, S = _dft_matrices(cfg)
+        m = np.concatenate([C, S[:, 1:hi]], axis=1)
+    return torch.as_tensor(m, dtype=dtype, device=device)
+
+
 def stft_frames(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
     """Left-aligned STFT, no implicit padding: [..., samples] -> complex
     [..., T, half_bin] with T = 1 + (samples - n_fft) // hop."""
-    C, S = _dft_matrices(cfg)
     F = cfg.half_bin
     hi = _sin_hi(cfg)
-    CS = torch.as_tensor(np.concatenate([C, S[:, 1:hi]], axis=1), dtype=x.dtype, device=x.device)
+    CS = _matrix_on(cfg, False, x.dtype, x.device)
     if cfg.n_fft == 2 * cfg.hop:
         # 50% overlap: frame t is hop-blocks (t, t+1) — two half-frame
         # products instead of materialising the overlapping frames
@@ -114,10 +129,9 @@ def stft_frames(x: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
 def istft_frames(Y: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
     """Windowed inverse frames + overlap-add, unnormalised:
     complex [..., T, half_bin] -> [..., n_fft + hop * (T - 1)]."""
-    A, B = _idft_matrices(cfg)
     hi = _sin_hi(cfg)
     Yr = Y.real
-    AB = torch.as_tensor(np.concatenate([A, B[1:hi]], axis=0), dtype=Yr.dtype, device=Yr.device)
+    AB = _matrix_on(cfg, True, Yr.dtype, Yr.device)
     frames = torch.cat([Yr, Y.imag[..., 1:hi]], dim=-1) @ AB
     return overlap_add(frames, cfg.hop)
 

@@ -44,16 +44,20 @@ from distantspeech_tpu_torch.kws import kws_process
 from distantspeech_tpu_torch.ops import cuda_aec as ca, cuda_enhance as ce, cuda_flms as cf, cuda_mvdr as cm
 from distantspeech_tpu_torch.ops import cuda_mcra as cmc, cuda_sgsc as cs, cuda_srp as cr
 from distantspeech_tpu_torch.runtime import profiling
+from distantspeech_tpu_torch.runtime.cli import build_parser, run as cli_run
 from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, full_stack_process
+from distantspeech_tpu_torch.runtime.io import save_audio
+from distantspeech_tpu_torch.runtime.streaming import STREAM_FACTORIES, StreamingProcessor
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "distantspeech_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
-    (ROOT / "scripts").glob("*.py"))
+    (ROOT / "scripts").glob("*.py")) + sorted((ROOT / "examples_torch").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "distantspeech_tpu")
 # the subpackages and modules of the latest slice, which the import scan must reach
 NEW_MODULES = tuple(f"distantspeech_tpu_torch.{m}" for m in (
     "sim", "sim.room", "sim.ism", "postfilter", "postfilter.mccowan", "coherence.weights", "coherence.enhance",
-    "beamform.dios_gsc", "adaptive.nlms", "transform.multirate", "transform.griffin_lim"))
+    "beamform.dios_gsc", "adaptive.nlms", "transform.multirate", "transform.griffin_lim", "runtime.io",
+    "runtime.checkpoint", "runtime.streaming", "runtime.viz", "runtime.cli"))
 
 
 def _imported_modules(path):
@@ -83,8 +87,10 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
 
 
-def test_the_card_is_the_default_device(monkeypatch):
+def test_the_card_is_the_default_device(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wav = str(tmp_path / "in.wav")
+    save_audio(wav, np.zeros((2048, 4), np.float32))
     x = np.zeros((8, 1280), np.float32)
     geom = ArrayGeometry.linear(8, 0.032)
     x4, geom4 = x[:4], ArrayGeometry.linear(4, 0.032)
@@ -143,6 +149,9 @@ def test_the_card_is_the_default_device(monkeypatch):
         lambda: griffin_lim(np.ones((10, 129))),
         lambda: batched_rir(np.array([[1.0, 1.0, 1.0]]), np.array([[2.0, 1.5, 1.0]])),
         lambda: batched_propagation(x[:1], np.array([[1.0, 1.0, 1.0]]), np.array([[2.0, 1.5, 1.0]])),
+        *(lambda f=f: f(geom4, chunk_size=1024) for f in STREAM_FACTORIES.values()),
+        lambda: StreamingProcessor(lambda s, c: (s, c), ()),
+        lambda: cli_run(build_parser().parse_args([wav, wav + ".out.wav", "--pipeline", "fixed_ds"])),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -24,6 +24,7 @@ EXTRAS = {("beamform.enhance", "enhance_process"): ("t_chunk",)}
 RENAMES = {("array.steering", "steering_vector_jax"): "steering_vector_torch"}
 SLICE_F = ("adaptive.nlms", "beamform.dios_gsc", "coherence.weights", "coherence.enhance", "postfilter.mccowan",
            "transform.multirate", "transform.griffin_lim", "sim.room", "sim.ism")
+SLICE_G1 = ("runtime.io", "runtime.checkpoint", "runtime.streaming", "runtime.viz", "runtime.cli")
 
 
 def _twin_modules():
@@ -52,6 +53,41 @@ def _public_functions(mod):
 
 def test_slice_f_modules_have_twins():
     assert set(SLICE_F) <= set(MODULES)
+
+
+def test_slice_g1_modules_have_twins():
+    assert set(SLICE_G1) <= set(MODULES)
+    jrt, trt = (importlib.import_module(f"{pkg}.runtime") for pkg in ("distantspeech_tpu", "distantspeech_tpu_torch"))
+    assert {n for n in dir(jrt) if not n.startswith("_") and n not in SUBMODULES} <= set(dir(trt))
+
+
+SUBMODULES = {"checkpoint", "cli", "full_stack", "io", "profiling", "streaming", "viz"}
+
+
+def test_streaming_processor_methods_match():
+    """``StreamingProcessor``'s methods take JAX's parameters (and its
+    constructor ``device`` after them)."""
+    from distantspeech_tpu.runtime.streaming import StreamingProcessor as J
+    from distantspeech_tpu_torch.runtime.streaming import StreamingProcessor as T
+
+    for name in ("__init__", "process_chunk", "latency_report", "run"):
+        want = list(inspect.signature(getattr(J, name)).parameters)
+        got = list(inspect.signature(getattr(T, name)).parameters)
+        assert got == want + (["device"] if name == "__init__" else []), name
+
+
+def test_cli_parser_is_jax_parser_plus_cpu():
+    """The CLI's options and defaults are JAX's, with ``--cpu`` added and the
+    ``full_stack`` choice that JAX's ``--stream`` branch handles but its
+    parser lacks."""
+    from distantspeech_tpu.runtime import cli as jcli
+    from distantspeech_tpu_torch.runtime import cli as tcli
+
+    jopts = {a.dest: (a.default, a.choices) for a in jcli.build_parser()._actions}
+    topts = {a.dest: (a.default, a.choices) for a in tcli.build_parser()._actions}
+    assert topts.pop("cpu") == (False, None)
+    assert topts.pop("pipeline") == ("enhance", jopts.pop("pipeline")[1] + ["full_stack"])
+    assert topts == jopts
 
 
 @pytest.mark.parametrize("rel", MODULES)
