@@ -167,10 +167,21 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    every ``--stream``; and every ``examples_torch`` script, with
    ``run_full_stack.py --fused`` launching K7, K6 and K5 with the
    postfilter;
-19. with ``--parent DIR`` (a checkout of the parent commit), K2 and K10
+19. the scale-out (``smoke_slice_g2``): ``parallel.make_mesh()`` makes a
+   world of one on the card (NCCL, a local store); the kernel runners at
+   their main paths' sizes (``SLICE_G2_SIZES``) launch their kernels once a
+   call, counted from 0 (``make_sharded_enhance_mega`` with
+   ``inv_mode='rank1'`` K4; ``make_sharded_enhance_pallas`` the MCRA lanes
+   and K1; ``make_sharded_tdgsc_fused`` K5), and with the scan runners
+   (enhance, WPE, GSC, subband GSC) each equals its unsharded twin to the
+   bit or within ``SLICE_G2_BAR`` of max|twin|, printed; each pair timed in
+   turns (twin, sharded, sharded, twin), ms/call and audio-s/s with the
+   card line; ``runner_collectives()`` empty, ``measure_scaling()`` at
+   1x1, ``graft_entry.dryrun_multichip(1)``;
+20. with ``--parent DIR`` (a checkout of the parent commit), K2 and K10
    alone and the flagship ``fused`` path and B6, timed in the parent and in
    this tree in turns (``scripts/path_times.py``);
-20. the ``kernels`` JSON line, the card line, and the final JSON line.
+21. the ``kernels`` JSON line, the card line, and the final JSON line.
 
 K1, K2 and K6 also print a chain floor beside their bound: T frames times
 the longest dependent chain of one frame on the kernel's layout, counted
@@ -402,6 +413,7 @@ def main() -> int:
     smoke_slice_e(dev, card, seconds=4)
     smoke_slice_f(dev, card, seconds=4)
     smoke_slice_g1(dev, card)
+    smoke_slice_g2(dev, card)
     if args.parent:
         parent_times(args.parent)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included", flush=True)
@@ -2786,6 +2798,130 @@ def smoke_slice_g1(dev, card: str) -> None:
             check(all(launched.get(k, 0) >= 1 for k in ("fused_aec", "fused_kws", "fused_tdgsc")),
                   f"run_full_stack.py --fused launched K7, K6 and K5 (postfilter): {launched}")
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# phase 19's sizes: the kernel runners at their main paths' sizes; the scan runners at phase 16's sizes for their
+# unsharded twins (WPE B=8 x 2 mics, GSC B=32 x 4), the subband GSC at the GSC's, and the flagship scan at
+# B=8 x 8 mics x 1 s (its ~690 torch calls a frame make 4 s a 3 s call)
+SLICE_G2_SIZES = {"mega": (64, 8, 4), "pallas": (64, 8, 4), "tdgsc": (128, 4, 4), "enhance": (8, 8, 1),
+                  "wpe": (8, 2, 4), "gsc": (32, 4, 4), "subband_gsc": (32, 4, 4)}
+SLICE_G2_BAR = 1e-6  # a sharded runner against its unsharded twin, of max|twin|, where not equal to the bit
+
+
+def slice_g2_input(name: str, seed: int, dev, seconds=None):
+    """Phase 19's input of a runner (``SLICE_G2_SIZES``; ``seconds`` cuts its
+    length) on ``dev``: (x, seconds of audio)."""
+    import torch
+
+    B, M, sec = SLICE_G2_SIZES[name]
+    S = int((seconds or sec) * FS)
+    x = reverb_scene(B, M, S, seed=seed) if name == "wpe" else scene(B, M, S, seed=seed)[0]
+    return torch.as_tensor(x, device=dev), B * S / FS
+
+
+def slice_g2_runners(mesh, dev) -> dict:
+    """Phase 19's runners on ``mesh``: name -> (sharded runner, its unsharded twin on ``dev``, the input's
+    seed, the kernels one call of the runner launches on a card)."""
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+    from distantspeech_tpu_torch.array.steering import steering_vector
+    from distantspeech_tpu_torch.beamform import GscConfig, gsc_process
+    from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, enhance_process
+    from distantspeech_tpu_torch.beamform.subband_gsc import SubbandGscConfig, subband_gsc_process
+    from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig
+    from distantspeech_tpu_torch.derev import WpeConfig, wpe_process
+    from distantspeech_tpu_torch.ops.cuda_enhance import fused_enhance_full
+    from distantspeech_tpu_torch.ops.cuda_flms import fused_tdgsc
+    from distantspeech_tpu_torch.parallel import (
+        make_sharded_enhance, make_sharded_enhance_mega, make_sharded_enhance_pallas, make_sharded_gsc,
+        make_sharded_subband_gsc, make_sharded_tdgsc_fused, make_sharded_wpe,
+    )
+
+    look, ang, broadside = (90.0, 0.0), (197.0 / 180.0 * np.pi, 0.0), (np.pi / 2, 0.0)
+    geom8, geom4 = ArrayGeometry.linear(8, 0.032), ArrayGeometry.linear(4, 0.032)
+    steer8 = steering_vector(geom8, np.array(broadside), 256).astype(np.complex64)
+    cfg, tcfg, wcfg, scfg = EnhanceConfig(), TdGscConfig(n_mics=4), WpeConfig(n_channels=2), SubbandGscConfig(n_mics=4)
+    gcfg = GscConfig(n_mics=4, normalize_aic=True, spp_rel_diag=1e-5)
+    return {
+        "mega": (make_sharded_enhance_mega(mesh, geom8, look, cfg, inv_mode="rank1"),
+                 lambda x: fused_enhance_full(x, steer8, cfg, inv_mode="rank1"), 31, {"fused_enhance_full": 1}),
+        "pallas": (make_sharded_enhance_pallas(mesh, geom8, look, cfg),
+                   lambda x: enhance_process(x, geom8, look, cfg, backend="pallas", device=dev), 32,
+                   {"mcra_run": 1, "fused_mvdr_scan": 1}),
+        "tdgsc": (make_sharded_tdgsc_fused(mesh, geom4, ang, tcfg), lambda x: fused_tdgsc(x, geom4, ang, tcfg), 33,
+                  {"fused_tdgsc": 1}),
+        "enhance": (make_sharded_enhance(mesh, geom8, look, cfg),
+                    lambda x: enhance_process(x, geom8, look, cfg, device=dev), 34, {}),
+        "wpe": (make_sharded_wpe(mesh, wcfg), lambda x: wpe_process(x, wcfg, device=dev), 35, {}),
+        "gsc": (make_sharded_gsc(mesh, geom4, broadside, gcfg),
+                lambda x: gsc_process(x, geom4, broadside, gcfg, device=dev), 36, {}),
+        "subband_gsc": (make_sharded_subband_gsc(mesh, geom4, ang, scfg),
+                        lambda x: subband_gsc_process(x, geom4, ang, scfg, device=dev)[0], 37, {}),
+    }
+
+
+def smoke_slice_g2(dev, card: str) -> None:
+    """Phase 19: the sharded runners (``parallel``) on a world of one card: the NCCL process group from a
+    local store.  (1) The kernel runners at full size, each launching its kernels once a call (counts set to
+    0 just before, read just after), each against its direct call: ``make_sharded_enhance_mega`` (K4,
+    ``inv_mode='rank1'``), ``make_sharded_enhance_pallas`` (the MCRA lanes and K1) and
+    ``make_sharded_tdgsc_fused`` (K5).  (2) The scan runners (enhance, WPE, GSC, subband GSC) against their
+    unsharded twins.  Each pair timed in alternating turns (twin, sharded, sharded, twin), ms/call and
+    audio-s/s.  (3) ``runner_collectives()`` (none at a world of one) and ``measure_scaling()`` at 1x1.
+    (4) ``dryrun_multichip(1)``."""
+    import torch
+    import torch.distributed as dist
+
+    from distantspeech_tpu_torch.graft_entry import dryrun_multichip
+    from distantspeech_tpu_torch.parallel import make_mesh
+    from distantspeech_tpu_torch.parallel.scaling import measure_scaling, runner_collectives
+
+    tag = f"[{card}]"
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "phase 19 starts with no process group")
+    mesh = make_mesh()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1 and tuple(mesh.shape) == (1, 1)
+          and tuple(mesh.mesh_dim_names) == ("dp", "fb"),
+          f"make_mesh(): a world of one on the card, backend {dist.get_backend()}, mesh {mesh}")
+    for name, (run, twin, seed, kernels) in slice_g2_runners(mesh, dev).items():
+        x, audio_s = slice_g2_input(name, seed, dev)
+        B, M, sec = SLICE_G2_SIZES[name]
+        reset_launches()
+        got = run(x)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in launch_counts().items() if v}
+        check(launched == kernels, f"{name} runner (B={B}, M={M}, {sec} s) launched {launched or 'no kernel'}, "
+                                   f"want {kernels or 'none'}")
+        want = twin(x)
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        for i, (g, w) in enumerate(pairs):
+            check(g.shape == w.shape and bool(torch.isfinite(g).all()), f"{name} output {i}: finite {tuple(g.shape)}")
+            rel, mx = rel_err(g, w)
+            how = "equal to the bit" if torch.equal(g, w) else f"{rel:.3e} of max|twin| (max abs {mx:.3e})"
+            check(rel <= SLICE_G2_BAR, f"{name} runner output {i} vs its unsharded twin: {how} <= {SLICE_G2_BAR:g}")
+        t_twin, t_run = [], []
+        for _ in range(3 if name in ("mega", "pallas", "tdgsc", "wpe") else 1):  # the host-bound scans: one turn
+            for fn, acc in ((twin, t_twin), (run, t_run), (run, t_run), (twin, t_twin)):
+                acc.append(timed_once(fn, x)[1])
+        ms_twin, ms_run = float(np.median(t_twin)), float(np.median(t_run))
+        print(f"phase 19 {name} (B={B}, M={M}, {sec} s): sharded {ms_run:.3f} ms/call "
+              f"({audio_s / ms_run * 1e3:.1f} audio-s/s), unsharded twin {ms_twin:.3f} ms/call "
+              f"({audio_s / ms_twin * 1e3:.1f} audio-s/s); turns sharded {[round(t, 3) for t in t_run]}, "
+              f"twin {[round(t, 3) for t in t_twin]} {tag}", flush=True)
+
+    said = runner_collectives()
+    print(f"phase 19 runner_collectives(): {json.dumps(said)}", flush=True)
+    check(all(v["collectives"] == {} and v["output"] == {} for v in said.values()),
+          "runner_collectives(): no collective at a world of one (mega and tdgsc_fused included)")
+    scaling = measure_scaling(batch_per_dp=8, n_mics=8, seconds=0.5, iters=3)
+    print(f"phase 19 measure_scaling(1x1, B=8, 8 mics, 0.5 s, the flagship scan): {json.dumps(scaling)} {tag}",
+          flush=True)
+    check(len(scaling) == 1 and scaling[0]["mesh"] == "1x1" and scaling[0]["efficiency"] == 1.0,
+          "measure_scaling(): the 1x1 baseline")
+    t0 = time.perf_counter()
+    dryrun_multichip(1)
+    print(f"ok: dryrun_multichip(1) in {time.perf_counter() - t0:.1f} s", flush=True)
+    dist.destroy_process_group()
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 if __name__ == "__main__":
     sys.exit(main())

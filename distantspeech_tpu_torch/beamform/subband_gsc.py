@@ -126,13 +126,28 @@ def subband_gsc_core_step(
     [..., F] frame_len-delayed FBF spectrum.  Fn: the McSpp CDR's diffuse
     pair coherence (``cfg.spp.mccdr.fn_pair()``).  Returns (state,
     (output [..., L], p [..., F], bm_out [..., M, L]))."""
+    return core_step_on_bins(cfg, cfg.spp, Fn, state, D, Xf, Yf)
+
+
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def core_step_on_bins(cfg: SubbandGscConfig, spp_cfg: McSppConfig, Fn: torch.Tensor, state: SubbandGscCoreState,
+                      D: torch.Tensor, Xf: torch.Tensor, Yf: torch.Tensor, to_all=_identity, to_bins=_identity):
+    """``subband_gsc_core_step`` on a range of bins, for a runner that
+    splits them (``parallel.sharded.make_sharded_subband_gsc``): D, Xf, Yf,
+    Fn, the McSpp, BM and AIC states and ``spp_cfg`` cover the range;
+    ``to_all`` maps a BM or AIC error on the range to all bins before each
+    synthesis, and ``to_bins`` the BM output's analysis back to the range.
+    The transform carries hold the whole band.  Returns p on the range."""
     scfg = cfg.stft
-    spp_state, spp_out = mcspp_step(cfg.spp, Fn, state.spp, torch.movedim(D, -2, -1))
+    spp_state, spp_out = mcspp_step(spp_cfg, Fn, state.spp, torch.movedim(D, -2, -1))
     p = spp_out.p
 
     # blocking matrix: per-mic SubbandLMS (fbf -> mic), p-gated
     bm_state, e_bm = subband_lms_step(cfg.bm, state.bm, Xf[..., None, :].expand(D.shape), D, p=p[..., None, :])
-    istft_bm, bm_out = istft_stream(state.istft_bm, e_bm[..., None, :], scfg)  # [..., M, L]
+    istft_bm, bm_out = istft_stream(state.istft_bm, to_all(e_bm)[..., None, :], scfg)  # [..., M, L]
 
     # AIC: multichannel SubbandLmsMc (bm_out -> delayed fbf), (1 - p)-gated
     stft_aic_x, Uf = stft_stream(state.stft_aic_x, bm_out, scfg)  # [..., M, 1, F]
@@ -141,8 +156,9 @@ def subband_gsc_core_step(
         gate = gate * (p <= cfg.aic_freeze_thresh)
     if cfg.aic_warmup_frames > 0:
         gate = gate * float(state.spp.frm_cnt >= cfg.aic_warmup_frames)
-    aic_state, e_aic = subband_lms_mc_step(cfg.aic, state.aic, torch.movedim(Uf[..., 0, :], -2, -1), Yf, p=gate)
-    istft_aic, out = istft_stream(state.istft_aic, e_aic[..., None, :], scfg)
+    aic_state, e_aic = subband_lms_mc_step(cfg.aic, state.aic, torch.movedim(to_bins(Uf[..., 0, :]), -2, -1), Yf,
+                                           p=gate)
+    istft_aic, out = istft_stream(state.istft_aic, to_all(e_aic)[..., None, :], scfg)
 
     new_state = SubbandGscCoreState(spp=spp_state, bm=bm_state, istft_bm=istft_bm, aic=aic_state,
                                     stft_aic_x=stft_aic_x, istft_aic=istft_aic)

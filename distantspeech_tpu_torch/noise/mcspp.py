@@ -60,6 +60,12 @@ class McSppConfig:
         """Mid-band bins whose mean q drives the loading."""
         return int(500 * self.nfft / 16000), int(2000 * self.nfft / 16000)
 
+    def qband_mean(self, q: torch.Tensor) -> torch.Tensor:
+        """The mean of q [..., F] over ``qband`` (a bin-sharded runner
+        overrides it with the all-reduce of its shards' partial sums)."""
+        lo, hi = self.qband
+        return q[..., lo:hi].mean(dim=-1)
+
 
 class McSppState(NamedTuple):
     Phi_yy: torch.Tensor  # [..., F, C, C] complex
@@ -85,8 +91,7 @@ def mcspp_step(cfg: McSppConfig, Fn: torch.Tensor, state: McSppState, y: torch.T
     mccdr_state, cdr_p = mccdr_step(cfg.mccdr, Fn, state.mccdr, y[..., : cfg.mccdr.n_channels])
     q = 1.0 - cdr_p
 
-    lo, hi = cfg.qband
-    q_avg = q[..., lo:hi].mean(dim=-1)
+    q_avg = cfg.qband_mean(q)
     diag_value = q_avg * cfg.diag_max + (1.0 - q_avg) * cfg.diag_min  # [...]
     diag = diag_value[..., None, None, None] * eye  # broadcast over bins
 

@@ -2,7 +2,7 @@
 (csrc/aec.cu), K4 (csrc/enhance.cu's mega kernel) and K2 (its lane kernel),
 K9 (csrc/sgsc.cu), K1 (csrc/mvdr.cu), K6 (csrc/kws.cu), K10 (csrc/srp.cu)
 and the MCRA lane kernel (csrc/mcra.cu) rehearsed on the CPU: each source compiled
-with g++ against the thread-and-barrier shim in ``tests/torch_cuda_shim``,
+with g++ against the fiber shim in ``tests/torch_cuda_shim``,
 launched through its C launcher on CPU buffers and held to the kernel's
 plain version at 1e-4 of max|out| (bm likewise, p absolutely).  K5 and K8
 run B=2 x T=6 frames at Lf=256 and 128 with 4 mics, and at Lf=128 with 2,
@@ -38,8 +38,8 @@ frames at Lf 256 and 128 with the defer cut so that its tap FIFO wraps,
 and with Dn = 2 and 1, its gap taken against max|d| (the output is the
 residual the cleaner leaves); before the FIFO wraps its output must be d
 to the bit.  The launches run in child processes (one per kernel family, at
-once) with a time limit (``rehearse.py``), so mismatched barriers fail the
-test instead of hanging it."""
+once) with a time limit (``rehearse.py``); mismatched barriers abort the
+child (the shim finds a block whose threads all wait) and fail the test."""
 
 import json
 import subprocess
@@ -52,9 +52,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "torch_cuda_shim"))
 import rehearse  # noqa: E402
 
 TOL = 1e-4
-# the child processes, one per group of cases, run at once
-# (awaited in this order, each with its own time limit: the last, K2's
-# 4-thread lanes, shuffles most and slows most when the machine is busy)
+# the child processes, one per group of cases, run at once, each on one
+# core (the shim's fibers take turns on the launching thread), awaited in
+# this order, each with its own time limit
 GROUPS = (("k5", "k8", "mcra"), ("k7",), ("k4-rank1-256", "k4-ldl-256"), ("k4-rank1-512", "k4-rank1-1024"), ("k9",),
           ("k1",), ("k6", "k10"), ("k2-rank1-256-m28",), ("k2-rank1-64", "k2-ldl-64"),
           ("k4-rank1-768", "k4-rank1-1280", "k4-rank1-2048"), ("k2-rank1-256-m12",))

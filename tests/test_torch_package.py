@@ -43,6 +43,9 @@ from distantspeech_tpu_torch.transform import SubbandConfig, subband_synthesis_i
 from distantspeech_tpu_torch.kws import kws_process
 from distantspeech_tpu_torch.ops import cuda_aec as ca, cuda_enhance as ce, cuda_flms as cf, cuda_mvdr as cm
 from distantspeech_tpu_torch.ops import cuda_mcra as cmc, cuda_sgsc as cs, cuda_srp as cr
+from distantspeech_tpu_torch import graft_entry
+from distantspeech_tpu_torch.parallel import make_mesh
+from distantspeech_tpu_torch.parallel.scaling import measure_scaling, runner_collectives
 from distantspeech_tpu_torch.runtime import profiling
 from distantspeech_tpu_torch.runtime.cli import build_parser, run as cli_run
 from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, full_stack_process
@@ -53,11 +56,12 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "distantspeech_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
     (ROOT / "scripts").glob("*.py")) + sorted((ROOT / "examples_torch").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "distantspeech_tpu")
-# the subpackages and modules of the latest slice, which the import scan must reach
+# the subpackages and modules of the latest slices, which the import scan must reach
 NEW_MODULES = tuple(f"distantspeech_tpu_torch.{m}" for m in (
     "sim", "sim.room", "sim.ism", "postfilter", "postfilter.mccowan", "coherence.weights", "coherence.enhance",
     "beamform.dios_gsc", "adaptive.nlms", "transform.multirate", "transform.griffin_lim", "runtime.io",
-    "runtime.checkpoint", "runtime.streaming", "runtime.viz", "runtime.cli"))
+    "runtime.checkpoint", "runtime.streaming", "runtime.viz", "runtime.cli", "parallel", "parallel.mesh",
+    "parallel.sharded", "parallel.scaling", "graft_entry"))
 
 
 def _imported_modules(path):
@@ -152,6 +156,12 @@ def test_the_card_is_the_default_device(monkeypatch, tmp_path):
         *(lambda f=f: f(geom4, chunk_size=1024) for f in STREAM_FACTORIES.values()),
         lambda: StreamingProcessor(lambda s, c: (s, c), ()),
         lambda: cli_run(build_parser().parse_args([wav, wav + ".out.wav", "--pipeline", "fixed_ds"])),
+        lambda: make_mesh(),
+        lambda: make_mesh(1, 1),
+        lambda: measure_scaling(),
+        lambda: runner_collectives(),
+        lambda: graft_entry.entry(),
+        lambda: graft_entry.dryrun_multichip(1),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -22,9 +22,13 @@ import distantspeech_tpu_torch.ops
 EXTRAS = {("beamform.enhance", "enhance_process"): ("t_chunk",)}
 # functions that carry another name in the port
 RENAMES = {("array.steering", "steering_vector_jax"): "steering_vector_torch"}
+# parameters that carry another name in the port: collective_stats reads the
+# runners' recorded collectives where JAX reads the compiled HLO text
+PARAM_RENAMES = {("parallel.scaling", "collective_stats"): {"hlo_text": "log"}}
 SLICE_F = ("adaptive.nlms", "beamform.dios_gsc", "coherence.weights", "coherence.enhance", "postfilter.mccowan",
            "transform.multirate", "transform.griffin_lim", "sim.room", "sim.ism")
 SLICE_G1 = ("runtime.io", "runtime.checkpoint", "runtime.streaming", "runtime.viz", "runtime.cli")
+SLICE_G2 = ("parallel.mesh", "parallel.sharded", "parallel.scaling")
 
 
 def _twin_modules():
@@ -64,6 +68,23 @@ def test_slice_g1_modules_have_twins():
 SUBMODULES = {"checkpoint", "cli", "full_stack", "io", "profiling", "streaming", "viz"}
 
 
+def test_slice_g2_modules_have_twins():
+    """``parallel``'s modules and exports, and the dry-run twin of the
+    repository's ``__graft_entry__`` (``entry`` and ``dryrun_multichip``,
+    each with ``device`` added)."""
+    import __graft_entry__ as jentry
+
+    from distantspeech_tpu_torch import graft_entry as tentry
+
+    assert set(SLICE_G2) <= set(MODULES)
+    jpar, tpar = (importlib.import_module(f"{pkg}.parallel") for pkg in ("distantspeech_tpu", "distantspeech_tpu_torch"))
+    public = lambda m: {n for n in dir(m) if not n.startswith("_") and n not in ("mesh", "sharded", "scaling")}
+    assert public(jpar) == public(tpar)
+    for name in ("entry", "dryrun_multichip"):
+        want = list(inspect.signature(getattr(jentry, name)).parameters)
+        assert list(inspect.signature(getattr(tentry, name)).parameters) == want + ["device"], name
+
+
 def test_streaming_processor_methods_match():
     """``StreamingProcessor``'s methods take JAX's parameters (and its
     constructor ``device`` after them)."""
@@ -98,7 +119,8 @@ def test_public_signatures_match(rel):
         twin_name = RENAMES.get((rel, name), name)
         twin = getattr(tmod, twin_name, None)
         assert twin is not None, f"{rel}.{name} has no twin {twin_name}"
-        want = list(inspect.signature(fn).parameters)
+        renamed = PARAM_RENAMES.get((rel, name), {})
+        want = [renamed.get(p, p) for p in inspect.signature(fn).parameters]
         got = [p for p in inspect.signature(twin).parameters if p != "device"]
         extras = EXTRAS.get((rel, name), ())
         assert got == want + list(extras), f"{rel}.{name}: JAX {want}, port {got} (extras allowed: {extras})"

@@ -1,9 +1,14 @@
 // A CPU stand-in for the part of the CUDA runtime and device language that
 // the port's FLMS-family kernels (distantspeech_tpu_torch/csrc) use, so that
-// g++ (C++20) can compile a kernel source and run a launch on the CPU: one
-// std::thread per CUDA thread, the blocks of a grid one after another.
+// g++ (C++20) can compile a kernel source and run a launch on the CPU: each
+// CUDA thread is a fiber with a stack of its own, and the fibers of a block
+// take turns on the launching thread, the blocks of a grid one after another.
+// A fiber runs until it waits at a barrier (or returns); a round-robin
+// scheduler then resumes the next fiber whose barrier has opened.  Nothing
+// spins and nothing asks the operating system to switch, so a rehearsal costs
+// one core however busy the machine is.
 //
-// - __syncthreads is a std::barrier of the block, __syncwarp one of the warp,
+// - __syncthreads is a barrier of the block, __syncwarp one of the warp,
 //   group_sync(id, n) (bar.sync id, n) one per (id, n) of the block;
 // - __shfl_xor_sync, __shfl_up_sync, __shfl_sync and __any_sync exchange
 //   through a two-half per-thread array, one warp barrier a shuffle;
@@ -17,23 +22,26 @@
 // - dynamic shared memory is filled with NaN at each block's start, so a read
 //   of a word the kernel never wrote shows in its outputs;
 // - a launch with more than 1024 threads or more dynamic shared memory than a
-//   Hopper block may use (232,448 bytes) fails as the card's would.
+//   Hopper block may use (232,448 bytes) fails as the card's would;
+// - a block whose fibers all wait at barriers that cannot open (mismatched
+//   barriers) aborts the process with a message instead of hanging.
 //
 // rehearse.py rewrites the two constructs g++ cannot parse: the `<<<...>>>`
 // launch and `extern __shared__`.
 #pragma once
 
-#include <barrier>
+#include <sys/mman.h>
+
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <limits>
 #include <map>
 #include <memory>
-#include <mutex>
-#include <thread>
+#include <type_traits>
 #include <utility>
 #include <vector>
 
@@ -63,10 +71,29 @@ typedef void* cudaStream_t;
 namespace shim {
 
 constexpr size_t kMaxSmem = 232448;  // a Hopper block's dynamic shared memory with the opt-in
+constexpr size_t kStackBytes = size_t(1) << 20;  // each fiber's stack, committed as it is touched
+
+// A barrier of `expected` fibers.  The last to arrive opens it (the
+// generation moves on) and runs on; the others wait for the scheduler.
+struct Gate {
+  explicit Gate(unsigned n) : expected(n) {}
+  void arrive_and_wait();
+  unsigned expected, arrived = 0;
+  uint64_t gen = 0;
+};
+
+struct Fiber {
+  void* sp = nullptr;  // the saved stack pointer while it is not running
+  char* stack = nullptr;
+  unsigned tid = 0;
+  const Gate* gate = nullptr;  // the barrier it waits at, and that barrier's generation then
+  uint64_t gen = 0;
+  bool done = false;
+};
 
 struct Block {
-  explicit Block(unsigned nthreads, size_t smem_bytes) : all(nthreads) {
-    for (unsigned w = 0; w < (nthreads + 31) / 32; ++w) warps.emplace_back(std::make_unique<std::barrier<>>(32));
+  explicit Block(unsigned nthreads, size_t smem_bytes) : all(nthreads), parity(nthreads, 0u), mma_parity(nthreads, 0u) {
+    for (unsigned w = 0; w < (nthreads + 31) / 32; ++w) warps.emplace_back(std::make_unique<Gate>(32));
     exchange.resize(2 * nthreads);
     fragments.resize(2 * 6 * nthreads);
     const size_t n = smem_bytes / sizeof(float) + 4;
@@ -74,25 +101,96 @@ struct Block {
     for (size_t i = 0; i < n; ++i) smem[i] = std::numeric_limits<float>::quiet_NaN();
   }
   ~Block() { std::free(smem); }
-  std::barrier<>& named(int id, int n) {
-    std::lock_guard<std::mutex> lock(mu);
+  Gate& named(int id, int n) {
     auto& b = groups[{id, n}];
-    if (!b) b = std::make_unique<std::barrier<>>(n);
+    if (!b) b = std::make_unique<Gate>(n);
     return *b;
   }
-  std::barrier<> all;
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  Gate all;
+  std::vector<std::unique_ptr<Gate>> warps;
   std::vector<float> exchange;
+  std::vector<unsigned> parity, mma_parity;  // each thread's half of exchange / fragments
   std::vector<uint32_t> fragments;  // mma_m16n8k8_tf32's A and B registers, 6 a thread, two halves
-  std::mutex mu;
-  std::map<std::pair<int, int>, std::unique_ptr<std::barrier<>>> groups;
+  std::map<std::pair<int, int>, std::unique_ptr<Gate>> groups;
   float* smem = nullptr;
 };
 
 inline thread_local Block* block = nullptr;
 inline thread_local cudaError_t last_error = cudaSuccess;
+inline thread_local Fiber* current = nullptr;
+inline thread_local void* scheduler_sp = nullptr;
+inline thread_local void (*body_fn)(void*) = nullptr;
+inline thread_local void* body_arg = nullptr;
 
 inline void* dynamic_smem() { return block->smem; }
+
+// Saves the callee-saved registers and the floating-point control words on
+// the stack, stores the stack pointer in *save and resumes the context whose
+// stack pointer is `to`.
+extern "C" __attribute__((visibility("hidden"))) void shim_ctx_swap(void** save, void* to);
+asm(R"(
+  .text
+  .p2align 4
+  .hidden shim_ctx_swap
+  .type shim_ctx_swap, @function
+shim_ctx_swap:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  subq $16, %rsp
+  stmxcsr (%rsp)
+  fnstcw 4(%rsp)
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  ldmxcsr (%rsp)
+  fldcw 4(%rsp)
+  addq $16, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size shim_ctx_swap, .-shim_ctx_swap
+)");
+
+[[noreturn]] inline void fiber_main() {
+  body_fn(body_arg);
+  current->done = true;
+  shim_ctx_swap(&current->sp, scheduler_sp);
+  std::abort();  // a finished fiber is never resumed
+}
+
+// A fresh stack whose first swap "returns" into fiber_main with the stack
+// aligned as after a call; the control words are the launching thread's.
+inline void* fiber_start(char* stack) {
+  uintptr_t top = (reinterpret_cast<uintptr_t>(stack) + kStackBytes) & ~uintptr_t(15);
+  auto* sp = reinterpret_cast<uint64_t*>(top - 80);
+  std::memset(sp, 0, 80);
+  uint32_t csr;
+  uint16_t cw;
+  asm volatile("stmxcsr %0" : "=m"(csr));
+  asm volatile("fnstcw %0" : "=m"(cw));
+  std::memcpy(sp, &csr, 4);
+  std::memcpy(reinterpret_cast<char*>(sp) + 4, &cw, 2);
+  sp[8] = reinterpret_cast<uint64_t>(&fiber_main);
+  return sp;
+}
+
+inline void Gate::arrive_and_wait() {
+  if (++arrived == expected) {
+    arrived = 0;
+    ++gen;
+    return;
+  }
+  current->gate = this;
+  current->gen = gen;
+  shim_ctx_swap(&current->sp, scheduler_sp);
+}
 
 template <class Body>
 void launch(unsigned grid, unsigned nthreads, size_t smem_bytes, cudaStream_t, Body&& body);
@@ -110,24 +208,47 @@ void shim::launch(dim3 grid, unsigned nthreads, size_t smem_bytes, cudaStream_t,
     last_error = cudaErrorInvalidConfiguration;
     return;
   }
+  body_fn = [](void* b) { (*static_cast<std::remove_reference_t<Body>*>(b))(); };
+  body_arg = &body;
+  blockDim = dim3{nthreads, 1, 1};
+  gridDim = grid;
+  std::vector<Fiber> fibers(nthreads);
+  for (unsigned t = 0; t < nthreads; ++t) {
+    void* m = mmap(nullptr, kStackBytes, PROT_READ | PROT_WRITE, MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (m == MAP_FAILED) std::abort();
+    fibers[t].stack = static_cast<char*>(m);
+    fibers[t].tid = t;
+  }
   for (unsigned by = 0; by < grid.y; ++by) {
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       Block blk(nthreads, smem_bytes);
-      std::vector<std::thread> threads;
-      threads.reserve(nthreads);
-      for (unsigned t = 0; t < nthreads; ++t) {
-        threads.emplace_back([&, t, bx, by] {
-          threadIdx = dim3{t, 1, 1};
-          blockIdx = dim3{bx, by, 1};
-          blockDim = dim3{nthreads, 1, 1};
-          gridDim = grid;
-          block = &blk;
-          body();
-        });
+      block = &blk;
+      blockIdx = dim3{bx, by, 1};
+      for (auto& f : fibers) {
+        f.sp = fiber_start(f.stack);
+        f.gate = nullptr;
+        f.done = false;
       }
-      for (auto& th : threads) th.join();
+      for (unsigned live = nthreads; live > 0;) {
+        bool resumed = false;
+        for (auto& f : fibers) {
+          if (f.done || (f.gate != nullptr && f.gate->gen == f.gen)) continue;
+          f.gate = nullptr;
+          threadIdx = dim3{f.tid, 1, 1};
+          current = &f;
+          shim_ctx_swap(&scheduler_sp, f.sp);
+          resumed = true;
+          live -= f.done;
+        }
+        if (!resumed) {
+          std::fprintf(stderr, "shim: block (%u, %u): %u of %u threads wait at barriers that cannot open\n", bx, by,
+                       live, nthreads);
+          std::abort();
+        }
+      }
     }
   }
+  for (auto& f : fibers) munmap(f.stack, kStackBytes);
 }
 
 template <class Body>
@@ -147,9 +268,8 @@ namespace shim {
 // one shuffle to the next, so a second barrier is not needed: a lane writes
 // a half again only after the barrier of the shuffle in between, which
 // every lane passes after its read of that half.
-inline thread_local unsigned parity = 0;
 inline float exchange(float v, unsigned src) {
-  float* x = block->exchange.data() + (parity ^= 1u) * block->exchange.size() / 2;
+  float* x = block->exchange.data() + (block->parity[threadIdx.x] ^= 1u) * block->exchange.size() / 2;
   x[threadIdx.x] = v;
   __syncwarp();
   return x[(threadIdx.x & ~31u) | (src & 31u)];
@@ -171,7 +291,7 @@ inline float __shfl_sync(unsigned, float v, int src_lane) { return shim::exchang
 // Whether p holds on any lane of the warp: every lane publishes p into the
 // exchange half of this round and, after the warp's barrier, reads all 32.
 inline bool __any_sync(unsigned, bool p) {
-  float* x = shim::block->exchange.data() + (shim::parity ^= 1u) * shim::block->exchange.size() / 2;
+  float* x = shim::block->exchange.data() + (shim::block->parity[threadIdx.x] ^= 1u) * shim::block->exchange.size() / 2;
   x[threadIdx.x] = p ? 1.f : 0.f;
   __syncwarp();
   bool any = false;
@@ -193,10 +313,6 @@ inline unsigned __float_as_uint(float f) {
 
 inline float __fdividef(float a, float b) { return a / b; }
 
-namespace shim {
-inline thread_local unsigned mma_parity = 0;
-}  // namespace shim
-
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, d += a b.  Lane l =
 // 4 groupID + tig holds A[groupID + 8 (i & 1)][tig + 4 (i >> 1)] in a[i],
 // B[tig + 4 i][groupID] in b[i] and C[groupID + 8 (i >> 1)][2 tig + (i & 1)]
@@ -205,7 +321,7 @@ inline thread_local unsigned mma_parity = 0;
 // alternates halves from one call to the next, as the shuffles' exchange.
 inline void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   shim::Block& blk = *shim::block;
-  uint32_t* x = blk.fragments.data() + (shim::mma_parity ^= 1u) * blk.fragments.size() / 2;
+  uint32_t* x = blk.fragments.data() + (blk.mma_parity[threadIdx.x] ^= 1u) * blk.fragments.size() / 2;
   uint32_t* mine = x + 6 * threadIdx.x;
   for (int i = 0; i < 4; ++i) mine[i] = a[i];
   mine[4] = b[0];

@@ -1,9 +1,9 @@
 """Rehearse the port's FLMS-family CUDA kernels on the CPU.
 
 ``build`` compiles ``distantspeech_tpu_torch/csrc/<name>.cu`` with g++
-(C++20) against the shim header beside this file (``cuda_runtime.h``: one
-std::thread per CUDA thread, std::barrier for the block, warp and named
-barriers) into a shared library with the same C launcher as the nvcc build.
+(C++20) against the shim header beside this file (``cuda_runtime.h``: a
+fiber per CUDA thread, the block's fibers taking turns at its block, warp
+and named barriers) into a shared library with the same C launcher as the nvcc build.
 Run as a script, it launches K5 (``flms``), K8 (``fdgsc``), K7 (``aec``),
 K4 and K2 (``enhance``), K9 (``sgsc``), K1 (``mvdr``), K6 (``kws``), K10
 (``srp``) or the MCRA lane kernel (``mcra``) from such libraries on CPU
@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import platform
 import re
 import shutil
 import subprocess
@@ -138,13 +139,16 @@ def rewrite(source: str) -> str:
 
 
 def compiler_ready() -> str | None:
-    """Why the rehearsal cannot run here (no g++, or no C++20 <barrier>), or None."""
+    """Why the rehearsal cannot run here (not x86-64, whose context switch
+    the shim writes in assembly; no g++; or one without C++20), or None."""
+    if platform.machine() not in ("x86_64", "AMD64"):
+        return f"the shim's fibers switch stacks in x86-64 assembly, not on {platform.machine()}"
     gxx = shutil.which("g++")
     if gxx is None:
         return "g++ not found"
-    probe = subprocess.run([gxx, "-std=c++20", "-fsyntax-only", "-x", "c++", "-"], input="#include <barrier>\n",
-                           capture_output=True, text=True)
-    return None if probe.returncode == 0 else "g++ has no C++20 <barrier>"
+    probe = subprocess.run([gxx, "-std=c++20", "-fsyntax-only", "-I", str(HERE), "-x", "c++", "-"],
+                           input="#include <cuda_runtime.h>\n", capture_output=True, text=True)
+    return None if probe.returncode == 0 else f"g++ cannot compile the shim: {probe.stderr[-500:]}"
 
 
 def build(names, out_dir: Path) -> dict:
