@@ -1,0 +1,7 @@
+"""K6's share of its roofline (``roofline/k6.py``) in the traced stretch."""
+
+from portbench.metrics._kernels import roofline_pct
+
+
+def read(ctx: dict):
+    return roofline_pct(ctx, "k6")
