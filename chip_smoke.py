@@ -197,6 +197,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -601,12 +602,12 @@ def smoke(dev, card: str, B: int, seconds: int) -> list:
     launches = {}
     outputs = {}
     for backend, kname in (("mega", "fused_enhance_full"), ("fused", "fused_enhance")):
-        for k in ce.LAUNCHES:
-            ce.LAUNCHES[k] = 0
+        reset_launches()
         y = enhance_process(x, geom, look, EnhanceConfig(), backend=backend, inv_mode="rank1")
         torch.cuda.synchronize()
-        launches[kname] = ce.LAUNCHES[kname]
-        check(ce.LAUNCHES[kname] > 0, f"backend={backend} launched {kname} {ce.LAUNCHES[kname]} time(s): {dict(ce.LAUNCHES)}")
+        counts = launch_counts()
+        launches[kname] = counts[kname]
+        check(counts[kname] > 0, f"backend={backend} launched {kname} {counts[kname]} time(s): {dict(counts)}")
         check(tuple(y.shape) == (B, S) and bool(torch.isfinite(y).all()), f"backend={backend}: finite output {tuple(y.shape)}")
         snr_out = segment_snr_db(y.cpu().numpy(), env, bench_cfg.stft.hop)  # the STFT delays by one hop
         check(snr_out > snr_in, f"backend={backend}: output SNR {snr_out:.2f} dB > input SNR {snr_in:.2f} dB (mic 0)")
@@ -976,10 +977,10 @@ def smoke_k1(dev, card: str, B: int, seconds: int) -> list:
     Zt = ins[0]
     T, _, F, _ = Zt.shape
     print(f"K1 main-path input: T={T} B={B} F={F} M={M}", flush=True)
-    cm.LAUNCHES["fused_mvdr_scan"] = 0
+    reset_launches()
     y_nogain = cm.fused_mvdr_scan(*k1_args(bench_cfg, False, *ins))
     torch.cuda.synchronize()
-    launches_nogain = cm.LAUNCHES["fused_mvdr_scan"]
+    launches_nogain = launch_counts()["fused_mvdr_scan"]
     check(launches_nogain == 1, f"fused_mvdr_scan (no gain) launched {launches_nogain} time(s)")
 
     # ---- both variants against the plain version at full size (the plain
@@ -1136,10 +1137,10 @@ def smoke_k5(dev, card: str, B: int, seconds: int) -> list:
     recs = []
     for cname, name in (("core", "fused_tdgsc"), ("postfilter", "fused_tdgsc (postfilter)")):
         cfg = cfgs[cname]
-        cf.LAUNCHES["fused_tdgsc"] = 0
+        reset_launches()
         out, p, bm = tdgsc_process(x, geom, look, cfg, backend="fused")
         torch.cuda.synchronize()
-        launches = cf.LAUNCHES["fused_tdgsc"]
+        launches = launch_counts()["fused_tdgsc"]
         check(launches == 1, f"tdgsc_process fused {cname} launched fused_tdgsc {launches} time(s)")
         T = S // cfg.frame_len
         check(tuple(out.shape) == (B, T * cfg.frame_len) and tuple(p.shape) == (B, T, cfg.half_bin)
@@ -1215,21 +1216,18 @@ def erle_db(x0, e0, env, start=FS, margin=512):
                           for b in range(x0.shape[0])]))
 
 
-def kernel_modules():
-    from distantspeech_tpu_torch.ops import cuda_aec, cuda_enhance, cuda_flms, cuda_mcra, cuda_mvdr, cuda_sgsc, cuda_srp
-
-    return cuda_aec, cuda_enhance, cuda_flms, cuda_mcra, cuda_mvdr, cuda_sgsc, cuda_srp
-
-
 def reset_launches():
-    """Every kernel's launch count to 0."""
-    for mod in kernel_modules():
-        for k in mod.LAUNCHES:
-            mod.LAUNCHES[k] = 0
+    """Every kernel's launch count to 0 (the program's counters, ``runtime.profiling``)."""
+    from distantspeech_tpu_torch.runtime.profiling import reset_counters
+
+    reset_counters()
 
 
-def launch_counts() -> dict:
-    return {k: v for mod in kernel_modules() for k, v in mod.LAUNCHES.items()}
+def launch_counts() -> Counter:
+    """Launches by kernel since the last ``reset_launches`` (0 for a kernel not launched)."""
+    from distantspeech_tpu_torch.runtime.profiling import counters
+
+    return Counter({k.removeprefix("launch."): v for k, v in counters().items() if k.startswith("launch.")})
 
 
 def frame_ops(run, T):

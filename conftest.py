@@ -1,0 +1,5 @@
+"""Markers shared by every test folder of the repository."""
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA device; skips without one")

@@ -24,6 +24,7 @@ from distantspeech_tpu_torch.beamform.mvdr import MvdrConfig, MvdrState, mvdr_in
 from distantspeech_tpu_torch.noise.mcra import mcra_run
 from distantspeech_tpu_torch.ops.cuda_enhance import fused_enhance, fused_enhance_full
 from distantspeech_tpu_torch.ops.cuda_mvdr import fused_mvdr_scan
+from distantspeech_tpu_torch.runtime.profiling import span
 from distantspeech_tpu_torch.transform import StftConfig, analysis, synthesis
 
 
@@ -129,24 +130,26 @@ def enhance_process(
     ``ops.cuda_mvdr._mvdr_update_rank1``).  ``t_chunk`` sets the warmup
     length and the re-anchor cadence of 'rank1' (default: the largest
     divisor of T that is <= 64, else 64)."""
-    dev = resolve_device(device)
-    x = torch.as_tensor(x, device=dev)
-    angle_rad = np.asarray(look_angle_deg, dtype=np.float64) / 180.0 * np.pi
-    steer_np = steering_vector(geometry, angle_rad, cfg.stft.n_fft)
-    if backend in ("fused", "mega"):
-        run = fused_enhance_full if backend == "mega" else fused_enhance
-        return run(x, steer_np, cfg, t_chunk=t_chunk, inv_mode=inv_mode)
-    if backend not in ("scan", "pallas"):
-        raise ValueError(f"backend must be 'scan', 'pallas', 'fused' or 'mega', got {backend!r}")
-    if backend == "pallas" and x.ndim != 3:
-        raise ValueError(f"backend='pallas' needs x of shape [B, M, S], got {tuple(x.shape)}")
+    with span("ds.enhance_process"):
+        dev = resolve_device(device)
+        x = torch.as_tensor(x, device=dev)
+        with span("ds.prep.steering"):
+            angle_rad = np.asarray(look_angle_deg, dtype=np.float64) / 180.0 * np.pi
+            steer_np = steering_vector(geometry, angle_rad, cfg.stft.n_fft)
+        if backend in ("fused", "mega"):
+            run = fused_enhance_full if backend == "mega" else fused_enhance
+            return run(x, steer_np, cfg, t_chunk=t_chunk, inv_mode=inv_mode)
+        if backend not in ("scan", "pallas"):
+            raise ValueError(f"backend must be 'scan', 'pallas', 'fused' or 'mega', got {backend!r}")
+        if backend == "pallas" and x.ndim != 3:
+            raise ValueError(f"backend='pallas' needs x of shape [B, M, S], got {tuple(x.shape)}")
 
-    X = analysis(x, cfg.stft)  # [..., M, T, F]
-    Zt = torch.movedim(torch.movedim(X, -3, -1), -3, 0)  # [T, ..., F, M]
-    steer = torch.as_tensor(steer_np, dtype=Zt.dtype, device=dev)
-    if backend == "pallas":
-        Y = enhance_scan_pallas(cfg, steer, Zt)
-    else:
-        state = enhance_init(cfg, geometry.n_mics, batch_shape=Zt.shape[1:-2], cdtype=Zt.dtype, device=dev)
-        _, Y = enhance_scan(cfg, steer, state, Zt)
-    return synthesis(torch.movedim(Y, 0, -2), cfg.stft)
+        X = analysis(x, cfg.stft)  # [..., M, T, F]
+        Zt = torch.movedim(torch.movedim(X, -3, -1), -3, 0)  # [T, ..., F, M]
+        steer = torch.as_tensor(steer_np, dtype=Zt.dtype, device=dev)
+        if backend == "pallas":
+            Y = enhance_scan_pallas(cfg, steer, Zt)
+        else:
+            state = enhance_init(cfg, geometry.n_mics, batch_shape=Zt.shape[1:-2], cdtype=Zt.dtype, device=dev)
+            _, Y = enhance_scan(cfg, steer, state, Zt)
+        return synthesis(torch.movedim(Y, 0, -2), cfg.stft)

@@ -14,12 +14,12 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from distantspeech_tpu_torch._device import resolve_device
 from distantspeech_tpu_torch.array.geometry import ArrayGeometry
 from distantspeech_tpu_torch.derev.wpe import WpeConfig, wpe_run
 from distantspeech_tpu_torch.doa.srp import SrpConfig, srp_process
+from distantspeech_tpu_torch.runtime.profiling import span
 from distantspeech_tpu_torch.transform.subband import subband_analysis, subband_synthesis
 
 
@@ -39,12 +39,13 @@ def wpe_synthesis(e: torch.Tensor, cfg: WpeConfig) -> torch.Tensor:
 def wpe_dereverb_all(x: torch.Tensor, cfg: WpeConfig) -> torch.Tensor:
     """WPE of every channel.  x: [..., C, S] -> [..., C, S]: each channel's
     prediction error through the subband synthesis.  Each stage is a
-    ``torch.profiler`` range (``wpe_srp.analysis``, ``.wpe``, ``.synthesis``)."""
-    with record_function("wpe_srp.analysis"):
+    ``runtime.profiling.span`` (``ds.wpe_srp.analysis``, ``.wpe``,
+    ``.synthesis``), recorded while a ``torch.profiler`` runs."""
+    with span("ds.wpe_srp.analysis"):
         D = wpe_analysis(x, cfg)
-    with record_function("wpe_srp.wpe"):
+    with span("ds.wpe_srp.wpe"):
         e = wpe_run(cfg, D)
-    with record_function("wpe_srp.synthesis"):
+    with span("ds.wpe_srp.synthesis"):
         return wpe_synthesis(e, cfg)
 
 
@@ -59,5 +60,5 @@ def wpe_srp_process(
     x = torch.as_tensor(x, device=resolve_device(device))
     cfg = wpe_cfg or WpeConfig(n_channels=geometry.n_mics)
     y = wpe_dereverb_all(x, cfg)
-    with record_function("wpe_srp.srp"):
+    with span("ds.wpe_srp.srp"):
         return srp_process(y, geometry, srp_cfg, phat=phat, backend=backend, device=x.device)

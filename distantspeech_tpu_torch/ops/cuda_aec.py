@@ -39,8 +39,8 @@ from distantspeech_tpu_torch._device import wrapper_input
 from distantspeech_tpu_torch.adaptive.feature import emphasis_init, pre_emphasis
 from distantspeech_tpu_torch.ops import _build
 from distantspeech_tpu_torch.ops.cuda_flms import _pack, _twiddles, _unpack, plain_dft_packed
+from distantspeech_tpu_torch.runtime.profiling import count, span
 
-LAUNCHES = {"fused_aec": 0}
 DEEMPH = 0.98  # the de-emphasis pole of adaptive.feature.de_emphasis
 
 
@@ -280,15 +280,16 @@ def aec_frames(farp: torch.Tensor, xp: torch.Tensor, cfg, decisions: bool = Fals
     (float32, contiguous) or raise."""
     if xp.device.type == "cpu":
         return aec_frames_plain(farp, xp, cfg, decisions)
-    _check_cfg(cfg)
-    _build.check_tensors("fused_aec", farp, xp)
-    B, M, S = xp.shape
-    if farp.shape != (B, S) or S % cfg.block_len:
-        raise ValueError("fused_aec: farp must be [B, S'] and xp [B, M, S'] with S' whole blocks")
-    out = torch.empty_like(xp)
-    upd = torch.empty((B, M, S // cfg.block_len), dtype=torch.float32, device=xp.device) if decisions else None
-    _launch(farp, xp, cfg, out, upd, torch.cuda.current_stream(xp.device).cuda_stream)
-    LAUNCHES["fused_aec"] += 1
+    with span("ds.k7.launch"):
+        _check_cfg(cfg)
+        _build.check_tensors("fused_aec", farp, xp)
+        B, M, S = xp.shape
+        if farp.shape != (B, S) or S % cfg.block_len:
+            raise ValueError("fused_aec: farp must be [B, S'] and xp [B, M, S'] with S' whole blocks")
+        out = torch.empty_like(xp)
+        upd = torch.empty((B, M, S // cfg.block_len), dtype=torch.float32, device=xp.device) if decisions else None
+        _launch(farp, xp, cfg, out, upd, torch.cuda.current_stream(xp.device).cuda_stream)
+        count("launch.fused_aec")
     return (out, upd > 0.5) if decisions else out
 
 
@@ -299,5 +300,7 @@ def fused_aec(far, x, cfg=None):
     ``runtime.full_stack``).  Tensors stay on their device; other inputs go
     to the card."""
     cfg = _default_cfg() if cfg is None else cfg
-    farp, xp = _prepare(wrapper_input(far), wrapper_input(x), cfg)
-    return aec_frames(farp.contiguous(), xp.contiguous(), cfg)
+    with span("ds.k7.prepare"):
+        farp, xp = _prepare(wrapper_input(far), wrapper_input(x), cfg)
+        farp, xp = farp.contiguous(), xp.contiguous()
+    return aec_frames(farp, xp, cfg)

@@ -43,8 +43,8 @@ neither bound counts; chip_smoke.py computes the bounds and times both.
 
 On a CPU tensor the wrappers run ``fused_enhance_plain`` (one dtype-generic
 plain-PyTorch function with the semantics of both kernels); on a CUDA
-tensor they launch the kernel or raise.  ``LAUNCHES`` counts kernel
-launches per wrapper.
+tensor they launch the kernel or raise.  Each launch counts
+``launch.<wrapper>`` in ``runtime.profiling``'s registry.
 """
 
 from __future__ import annotations
@@ -68,9 +68,8 @@ from distantspeech_tpu_torch.ops.cuda_mvdr import (
     _refresh_loading,
 )
 from distantspeech_tpu_torch.ops.framing import overlap_add
+from distantspeech_tpu_torch.runtime.profiling import count, span
 from distantspeech_tpu_torch.transform.stft import _dft_matrices, _idft_matrices
-
-LAUNCHES = {"fused_enhance": 0, "fused_enhance_full": 0}
 
 # inv_mode='rank1': frames of exact per-frame LDL^H before the Bennett
 # handover, rounded up to whole frame chunks
@@ -104,10 +103,13 @@ def _prepare(x: torch.Tensor, steer, cfg, t_chunk, inv_mode):
     T = x.shape[-1] // stft.hop
     if T < 1:
         raise ValueError(f"x needs at least one hop ({stft.hop} samples)")
-    steer = torch.as_tensor(steer)
-    if steer.shape != (stft.half_bin, x.shape[1]):
-        raise ValueError(f"steer must be [F, M] = {(stft.half_bin, x.shape[1])}, got {tuple(steer.shape)}")
-    planes = torch.stack([steer.real.T, steer.imag.T], dim=1).to(device=x.device, dtype=x.dtype).contiguous()
+    with span("ds.prep.steering"):
+        steer = torch.as_tensor(steer)
+        if steer.shape != (stft.half_bin, x.shape[1]):
+            raise ValueError(f"steer must be [F, M] = {(stft.half_bin, x.shape[1])}, got {tuple(steer.shape)}")
+        planes = torch.stack([steer.real.T, steer.imag.T], dim=1).to(device=x.device, dtype=x.dtype).contiguous()
+        if steer.device.type == "cpu" and x.device.type == "cuda":  # from pageable memory: waits for the stream
+            count("host_sync.prep.steering")
     tc = t_chunk or _pick_t_chunk(T) or 64
     return x, planes, tc
 
@@ -309,7 +311,7 @@ def enhance_lanes(Z, Sf, steer_planes, cfg, t_chunk: int, inv_mode: str = "ldl")
         ctypes.addressof(params), torch.cuda.current_stream(Z.device).cuda_stream,
     )
     _build.check_launch("enhance", err, "fused_enhance")
-    LAUNCHES["fused_enhance"] += 1
+    count("launch.fused_enhance")
     return Y
 
 
@@ -342,25 +344,26 @@ def fused_enhance_full(x: torch.Tensor, steer, cfg, t_chunk: int = None, inv_mod
     if x.device.type == "cpu":
         return fused_enhance_plain(x, steer, cfg, t_chunk, inv_mode)
     x, planes, tc = _prepare(x, steer, cfg, t_chunk, inv_mode)
-    x = x.contiguous()
-    _build.check_tensors("fused_enhance_full", x)
-    B, M, S = x.shape
-    stft = cfg.stft
-    lib = _library()
-    if lib.fused_enhance_full_scratch_floats(M, stft.n_fft) < 0:
-        raise ValueError(f"fused_enhance_full: the kernel takes M >= 2 and n_fft a multiple of 256, "
-                         f"got M={M}, n_fft={stft.n_fft}; backend='fused' runs any")
-    T = S // stft.hop
-    y = torch.empty((B, S), dtype=torch.float32, device=x.device)
-    tabs = _dft_tables(stft, x.device)
-    params = _lane_params(cfg, M, tc, inv_mode)
-    n_scratch = lib.fused_enhance_full_scratch_floats(M, stft.n_fft)  # lane states that fit no block
-    scratch = torch.empty((B * n_scratch,), dtype=torch.float32, device=x.device) if n_scratch > 0 else None
-    err = lib.fused_enhance_full_launch(
-        x.data_ptr(), tabs.data_ptr(), planes.data_ptr(), y.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None, M, B, stft.n_fft, T,
-        stft.synthesis_gain, ctypes.addressof(params), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check_launch("enhance", err, "fused_enhance_full")
-    LAUNCHES["fused_enhance_full"] += 1
+    with span("ds.k4.launch"):
+        x = x.contiguous()
+        _build.check_tensors("fused_enhance_full", x)
+        B, M, S = x.shape
+        stft = cfg.stft
+        lib = _library()
+        if lib.fused_enhance_full_scratch_floats(M, stft.n_fft) < 0:
+            raise ValueError(f"fused_enhance_full: the kernel takes M >= 2 and n_fft a multiple of 256, "
+                             f"got M={M}, n_fft={stft.n_fft}; backend='fused' runs any")
+        T = S // stft.hop
+        y = torch.empty((B, S), dtype=torch.float32, device=x.device)
+        tabs = _dft_tables(stft, x.device)
+        params = _lane_params(cfg, M, tc, inv_mode)
+        n_scratch = lib.fused_enhance_full_scratch_floats(M, stft.n_fft)  # lane states that fit no block
+        scratch = torch.empty((B * n_scratch,), dtype=torch.float32, device=x.device) if n_scratch > 0 else None
+        err = lib.fused_enhance_full_launch(
+            x.data_ptr(), tabs.data_ptr(), planes.data_ptr(), y.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, M, B, stft.n_fft, T,
+            stft.synthesis_gain, ctypes.addressof(params), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        _build.check_launch("enhance", err, "fused_enhance_full")
+        count("launch.fused_enhance_full")
     return y

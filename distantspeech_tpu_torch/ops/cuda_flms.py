@@ -67,9 +67,9 @@ from distantspeech_tpu_torch.ops import _build
 from distantspeech_tpu_torch.ops.cuda_enhance import _bin_masks, _mcra_frame
 from distantspeech_tpu_torch.ops.cuda_mvdr import _mcra_params, _McraParams
 from distantspeech_tpu_torch.ops.fir import fir_filter_offline
+from distantspeech_tpu_torch.runtime.profiling import count, span
 from distantspeech_tpu_torch.transform.stft import StftConfig, _dft_matrices, _idft_matrices, stft_frames
 
-LAUNCHES = {"fused_tdgsc": 0, "fused_kws": 0, "fused_fdgsc": 0}
 FDGSC_MAXNORM = 0.003  # the FDGSC AIC's filter-norm ceiling (aic_step's default)
 
 
@@ -147,7 +147,10 @@ def aligned_mics(x: torch.Tensor, geometry, angle_rad) -> torch.Tensor:
     """The DC notch (radius 0.98) and fractional-delay alignment of x
     [..., M, S]."""
     _, xn = dc_notch(dc_notch_init(x.shape[:-1], dtype=x.dtype, device=x.device), x, radius=0.98)
-    coeffs = torch.as_tensor(time_alignment_filters(geometry, angle_rad), dtype=x.dtype, device=x.device)
+    with span("ds.prep.alignment"):
+        coeffs = torch.as_tensor(time_alignment_filters(geometry, angle_rad), dtype=x.dtype, device=x.device)
+        if x.device.type == "cuda":  # from pageable memory: waits for the stream
+            count("host_sync.prep.alignment")
     return fir_filter_offline(xn, coeffs)
 
 
@@ -375,29 +378,30 @@ def tdgsc_frames(bm: torch.Tensor, d: torch.Tensor, yp: torch.Tensor, up, cfg):
     the kernel (float32, contiguous, C = M - 1 >= 1) or raise."""
     if bm.device.type == "cpu":
         return tdgsc_frames_plain(bm, d, yp, up, cfg)
-    B, C, S = bm.shape
-    Lf = cfg.frame_len
-    T, F = S // Lf, Lf + 1
-    extra = () if up is None else (up,)
-    _build.check_tensors("fused_tdgsc", bm, d, yp, *extra)
-    if C < 1:
-        raise ValueError(f"fused_tdgsc: the kernel takes M - 1 >= 1 blocking-matrix channels, got {C}")
-    if d.shape != (B, S) or yp.shape != (B, T, F) or (up is not None and up.shape != (B, C, T, F)):
-        raise ValueError("fused_tdgsc: d must be [B, S'], yp [B, T, F] and up [B, C, T, F]")
-    if (up is not None) != cfg.postfilter:
-        raise ValueError("fused_tdgsc: up is given exactly when cfg.postfilter is set")
-    out = torch.empty((B, S), dtype=torch.float32, device=bm.device)
-    p = torch.empty((B, T, F), dtype=torch.float32, device=bm.device)
-    params = _tdgsc_params(cfg)
-    scratch = _scratch("flms", bm.device, C, B, Lf, int(up is not None))
-    err = _library("flms").fused_tdgsc_launch(
-        bm.data_ptr(), d.data_ptr(), yp.data_ptr(), up.data_ptr() if up is not None else None,
-        _tables(2 * Lf, bm.device).data_ptr(), out.data_ptr(), p.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None, C, B, T, Lf,
-        ctypes.addressof(params), torch.cuda.current_stream(bm.device).cuda_stream,
-    )
-    _build.check_launch("flms", err, "fused_tdgsc")
-    LAUNCHES["fused_tdgsc"] += 1
+    with span("ds.k5.launch"):
+        B, C, S = bm.shape
+        Lf = cfg.frame_len
+        T, F = S // Lf, Lf + 1
+        extra = () if up is None else (up,)
+        _build.check_tensors("fused_tdgsc", bm, d, yp, *extra)
+        if C < 1:
+            raise ValueError(f"fused_tdgsc: the kernel takes M - 1 >= 1 blocking-matrix channels, got {C}")
+        if d.shape != (B, S) or yp.shape != (B, T, F) or (up is not None and up.shape != (B, C, T, F)):
+            raise ValueError("fused_tdgsc: d must be [B, S'], yp [B, T, F] and up [B, C, T, F]")
+        if (up is not None) != cfg.postfilter:
+            raise ValueError("fused_tdgsc: up is given exactly when cfg.postfilter is set")
+        out = torch.empty((B, S), dtype=torch.float32, device=bm.device)
+        p = torch.empty((B, T, F), dtype=torch.float32, device=bm.device)
+        params = _tdgsc_params(cfg)
+        scratch = _scratch("flms", bm.device, C, B, Lf, int(up is not None))
+        err = _library("flms").fused_tdgsc_launch(
+            bm.data_ptr(), d.data_ptr(), yp.data_ptr(), up.data_ptr() if up is not None else None,
+            _tables(2 * Lf, bm.device).data_ptr(), out.data_ptr(), p.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, C, B, T, Lf,
+            ctypes.addressof(params), torch.cuda.current_stream(bm.device).cuda_stream,
+        )
+        _build.check_launch("flms", err, "fused_tdgsc")
+        count("launch.fused_tdgsc")
     return out, p
 
 
@@ -412,9 +416,11 @@ def fused_tdgsc(x, geometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0), cfg=None):
 
         cfg = TdGscConfig()
     x = _check(wrapper_input(x), cfg)
-    fbf, bm = front_end(x, geometry, angle_rad, cfg)
-    bm = bm.contiguous()
-    d, yp, up = (a.contiguous() if a is not None else None for a in _kernel_inputs(fbf, bm, cfg))
+    with span("ds.k5.front_end"):
+        fbf, bm = front_end(x, geometry, angle_rad, cfg)
+        bm = bm.contiguous()
+    with span("ds.k5.kernel_inputs"):
+        d, yp, up = (a.contiguous() if a is not None else None for a in _kernel_inputs(fbf, bm, cfg))
     return (*tdgsc_frames(bm, d, yp, up, cfg), bm)
 
 
@@ -520,15 +526,16 @@ def kws_frames(x0: torch.Tensor, d: torch.Tensor, cfg) -> torch.Tensor:
     contiguous) or raise."""
     if x0.device.type == "cpu":
         return kws_frames_plain(x0, d, cfg)
-    _build.check_tensors("fused_kws", x0, d)
-    B, S = x0.shape
-    Lf = cfg.flms.filter_len
-    if d.shape != (B, S) or S % Lf:
-        raise ValueError("fused_kws: x0 and d must be [B, S'] with S' whole frames")
-    fifo = torch.zeros((B, cfg.delay_frames_n, Lf), dtype=torch.float32, device=x0.device)
-    out = torch.empty_like(x0)
-    _kws_launch(x0, d, cfg, fifo, out, torch.cuda.current_stream(x0.device).cuda_stream)
-    LAUNCHES["fused_kws"] += 1
+    with span("ds.k6.launch"):
+        _build.check_tensors("fused_kws", x0, d)
+        B, S = x0.shape
+        Lf = cfg.flms.filter_len
+        if d.shape != (B, S) or S % Lf:
+            raise ValueError("fused_kws: x0 and d must be [B, S'] with S' whole frames")
+        fifo = torch.zeros((B, cfg.delay_frames_n, Lf), dtype=torch.float32, device=x0.device)
+        out = torch.empty_like(x0)
+        _kws_launch(x0, d, cfg, fifo, out, torch.cuda.current_stream(x0.device).cuda_stream)
+        count("launch.fused_kws")
     return out
 
 
@@ -538,8 +545,10 @@ def fused_kws(x, cfg=None) -> torch.Tensor:
     wider array): the kernel's inputs are contiguous copies.  A tensor stays
     on its device; other inputs go to the card."""
     cfg = _kws_default() if cfg is None else cfg
-    x0, d = _kws_inputs(_kws_check(wrapper_input(x), cfg), cfg)
-    return kws_frames(x0.contiguous(), d.contiguous(), cfg)
+    with span("ds.k6.inputs"):
+        x0, d = _kws_inputs(_kws_check(wrapper_input(x), cfg), cfg)
+        x0, d = x0.contiguous(), d.contiguous()
+    return kws_frames(x0, d, cfg)
 
 
 # ---- K8: the frequency-domain GSC --------------------------------------------
@@ -731,7 +740,7 @@ def fdgsc_frames(fbf, dbm, daic, yp, cfg):
     p = torch.empty((B, T, F), dtype=torch.float32, device=dbm.device)
     bm = torch.empty_like(dbm)
     _fdgsc_launch(fbf, dbm, daic, yp, cfg, out, p, bm, torch.cuda.current_stream(dbm.device).cuda_stream)
-    LAUNCHES["fused_fdgsc"] += 1
+    count("launch.fused_fdgsc")
     return out, p, bm
 
 

@@ -20,8 +20,7 @@ import torch
 
 from distantspeech_tpu_torch.ops import _build
 from distantspeech_tpu_torch.ops.cuda_mvdr import _mcra_params
-
-LAUNCHES = {"mcra_run": 0}
+from distantspeech_tpu_torch.runtime.profiling import count
 
 
 def _library() -> ctypes.CDLL:
@@ -52,5 +51,5 @@ def mcra_frames(cfg, Y_tf: torch.Tensor, Sf: torch.Tensor, return_sr: bool = Fal
         torch.cuda.current_stream(Y.device).cuda_stream,
     )
     _build.check_launch("mcra", err, "mcra_run")
-    LAUNCHES["mcra_run"] += 1
+    count("launch.mcra_run")
     return tuple(outs)

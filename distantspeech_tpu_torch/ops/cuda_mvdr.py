@@ -45,8 +45,8 @@ import numpy as np
 import torch
 
 from distantspeech_tpu_torch.ops import _build
+from distantspeech_tpu_torch.runtime.profiling import count
 
-LAUNCHES = {"fused_mvdr_scan": 0}
 MAX_KERNEL_MICS = 128  # csrc/mvdr.cu's kMaxMics: up to 4 mic columns a thread
 
 
@@ -411,5 +411,5 @@ def fused_mvdr_scan(
         M, T, B, F, ctypes.addressof(params), torch.cuda.current_stream(Z.device).cuda_stream,
     )
     _build.check_launch("mvdr", err, "fused_mvdr_scan")
-    LAUNCHES["fused_mvdr_scan"] += 1
+    count("launch.fused_mvdr_scan")
     return torch.view_as_complex(Y)

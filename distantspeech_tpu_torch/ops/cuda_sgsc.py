@@ -46,9 +46,9 @@ from distantspeech_tpu_torch.ops import _build
 from distantspeech_tpu_torch.ops.cuda_enhance import _bin_masks, _mcra_frame
 from distantspeech_tpu_torch.ops.cuda_flms import _pack, _twiddles, _unpack, aligned_mics, windowed_dft_packed
 from distantspeech_tpu_torch.ops.cuda_mvdr import _mcra_params, _McraParams
+from distantspeech_tpu_torch.runtime.profiling import count
 from distantspeech_tpu_torch.transform.stft import StftConfig, stft_frames
 
-LAUNCHES = {"fused_subband_gsc": 0}
 AF_EPS = 1e-4  # the subband NLMS power floor (subband_lms_step's eps)
 REPAIR, OVER_DELTA = 1, 2  # decision bits: the xi < 0 repair ran; MCRA's S / Smin > delta_s
 
@@ -376,7 +376,7 @@ def subband_gsc_frames(sig: torch.Tensor, sf: torch.Tensor, cfg, decisions: bool
         dec.data_ptr(), B, T, L, ctypes.addressof(params), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check_launch("sgsc", err, "fused_subband_gsc")
-    LAUNCHES["fused_subband_gsc"] += 1
+    count("launch.fused_subband_gsc")
     return (out, p, bm, dec) if decisions else (out, p, bm)
 
 

@@ -25,8 +25,7 @@ import torch
 
 from distantspeech_tpu_torch._device import wrapper_input
 from distantspeech_tpu_torch.ops import _build
-
-LAUNCHES = {"fused_srp_spectrum": 0}
+from distantspeech_tpu_torch.runtime.profiling import count
 
 
 def pack_grid(grid, device) -> torch.Tensor:
@@ -92,7 +91,7 @@ def srp_spectrum(y2: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(y2.device).cuda_stream,
     )
     _build.check_launch("srp", err, "fused_srp_spectrum")
-    LAUNCHES["fused_srp_spectrum"] += 1
+    count("launch.fused_srp_spectrum")
     return out
 
 

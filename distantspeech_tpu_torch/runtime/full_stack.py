@@ -37,6 +37,7 @@ from distantspeech_tpu_torch.kws.dual_mic import DualMicKwsConfig, DualMicKwsSta
 from distantspeech_tpu_torch.ops.cuda_aec import fused_aec
 from distantspeech_tpu_torch.ops.cuda_flms import fused_kws, fused_tdgsc
 from distantspeech_tpu_torch.ops.fir import fir_block_taps, fir_filter_block
+from distantspeech_tpu_torch.runtime.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,31 +116,32 @@ def full_stack_process(
     the whole utterance; exactly the scan's math, since the stages only feed
     forward).  On CPU tensors 'fused' runs the kernels' plain versions.
     ``unroll`` is JAX's scan hint, inert here (``_device.check_unroll``)."""
-    check_unroll(unroll)
-    if cfg.aec.block_len != cfg.frame_len:
-        raise ValueError("aec.block_len must equal frame_len for the composed stack")
-    dev = resolve_device(device)
-    x = torch.as_tensor(x, device=dev)
-    far_end = torch.as_tensor(far_end, device=dev)
-    if backend == "fused":
-        echo_free = fused_aec(far_end, x, cfg.aec)
-        kws_clean = fused_kws(echo_free[:, :2], cfg.kws)
-        out, p, _ = fused_tdgsc(echo_free, geometry, angle_rad, cfg.gsc)
-        return out, kws_clean, p
-    if backend != "scan":
-        raise ValueError(f"backend must be 'scan' or 'fused', got {backend!r}")
-    L = cfg.frame_len
-    T = x.shape[-1] // L
-    coeffs_np = np.asarray(time_alignment_filters(geometry, angle_rad))
-    # the block-Toeplitz tap matrix, built once outside the frame loop
-    taps = fir_block_taps(torch.as_tensor(coeffs_np, dtype=x.dtype, device=x.device), L)
+    with span("ds.full_stack_process"):
+        check_unroll(unroll)
+        if cfg.aec.block_len != cfg.frame_len:
+            raise ValueError("aec.block_len must equal frame_len for the composed stack")
+        dev = resolve_device(device)
+        x = torch.as_tensor(x, device=dev)
+        far_end = torch.as_tensor(far_end, device=dev)
+        if backend == "fused":
+            echo_free = fused_aec(far_end, x, cfg.aec)
+            kws_clean = fused_kws(echo_free[:, :2], cfg.kws)
+            out, p, _ = fused_tdgsc(echo_free, geometry, angle_rad, cfg.gsc)
+            return out, kws_clean, p
+        if backend != "scan":
+            raise ValueError(f"backend must be 'scan' or 'fused', got {backend!r}")
+        L = cfg.frame_len
+        T = x.shape[-1] // L
+        coeffs_np = np.asarray(time_alignment_filters(geometry, angle_rad))
+        # the block-Toeplitz tap matrix, built once outside the frame loop
+        taps = fir_block_taps(torch.as_tensor(coeffs_np, dtype=x.dtype, device=x.device), L)
 
-    state = full_stack_init(cfg, coeffs_np, batch_shape=x.shape[:-2], dtype=x.dtype, device=x.device)
-    outs, kws, ps = [], [], []
-    for t in range(T):
-        blk = slice(t * L, (t + 1) * L)
-        state, (out, kc, p) = full_stack_step(cfg, taps, state, x[..., blk], far_end[..., blk])
-        outs.append(out)
-        kws.append(kc)
-        ps.append(p)
-    return torch.cat(outs, dim=-1), torch.cat(kws, dim=-1), torch.stack(ps, dim=-2)
+        state = full_stack_init(cfg, coeffs_np, batch_shape=x.shape[:-2], dtype=x.dtype, device=x.device)
+        outs, kws, ps = [], [], []
+        for t in range(T):
+            blk = slice(t * L, (t + 1) * L)
+            state, (out, kc, p) = full_stack_step(cfg, taps, state, x[..., blk], far_end[..., blk])
+            outs.append(out)
+            kws.append(kc)
+            ps.append(p)
+        return torch.cat(outs, dim=-1), torch.cat(kws, dim=-1), torch.stack(ps, dim=-2)

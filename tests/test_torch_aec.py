@@ -17,6 +17,7 @@ from distantspeech_tpu.ops.pallas_aec import fused_aec as j_fused
 from distantspeech_tpu_torch import convert
 from distantspeech_tpu_torch.adaptive import aec as ta, mdf as tm
 from distantspeech_tpu_torch.ops import cuda_aec as ca
+from distantspeech_tpu_torch.runtime.profiling import counters, reset_counters
 
 CFG = dict(filter_len=512, num_block=2)  # the full stack's AEC: 2 blocks of 256
 
@@ -129,9 +130,9 @@ def test_fused_plain_matches_the_step_loop_float64(fused_case):
 
 def test_fused_routing_and_validation():
     far, x = (torch.as_tensor(a) for a in _scene(3, 2, 256 * 6 + 100, 4))  # any B; a sub-block tail is dropped
-    ca.LAUNCHES["fused_aec"] = 0
+    reset_counters()
     got = ca.fused_aec(far, x, ta.AecConfig(**CFG))
-    assert ca.LAUNCHES["fused_aec"] == 0 and got.shape == (3, 2, 256 * 6)
+    assert "launch.fused_aec" not in counters() and got.shape == (3, 2, 256 * 6)
     assert torch.equal(got, ca.fused_aec_plain(far, x, ta.AecConfig(**CFG)))
     for bad, match in ((dict(num_block=4), "num_block"), (dict(non_causal=True), "causal"),
                        (dict(prop=False), "two_path\\+prop"), (dict(filter_len=384, num_block=1), "power of two")):

@@ -22,6 +22,7 @@ from distantspeech_tpu_torch.adaptive import flms as tflms
 from distantspeech_tpu_torch.array.geometry import ArrayGeometry as TGeometry
 from distantspeech_tpu_torch.beamform import fdgsc as tf, gsc_filters as tg
 from distantspeech_tpu_torch.ops import cuda_flms as cf
+from distantspeech_tpu_torch.runtime.profiling import counters, reset_counters
 
 ANG = (np.pi / 2, 0.0)
 B, M, T = 8, 4, 20
@@ -160,10 +161,10 @@ def test_fused_plain_matches_the_scan_float64():
 def test_fused_backend_runs_the_plain_version_on_cpu():
     x = torch.as_tensor(_scene(3, 256 * 6 + 100, 5))  # any B; a sub-frame tail is dropped
     cfg = tf.FdGscConfig(n_mics=M)
-    cf.LAUNCHES["fused_fdgsc"] = 0
+    reset_counters()
     got = tf.fdgsc_process(x, TGeometry.linear(M, 0.032), ANG, cfg, backend="fused", device="cpu")
     want = cf.fused_fdgsc_plain(x, TGeometry.linear(M, 0.032), ANG, cfg)
-    assert cf.LAUNCHES["fused_fdgsc"] == 0
+    assert "launch.fused_fdgsc" not in counters()
     assert got[0].shape == (3, 256 * 6) and got[1].shape == (3, 6, 257) and got[2].shape == (3, M, 256 * 6)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -16,8 +16,8 @@ from distantspeech_tpu.array.geometry import ArrayGeometry as JGeometry
 from distantspeech_tpu.runtime import full_stack as jfs
 from distantspeech_tpu_torch import convert
 from distantspeech_tpu_torch.array.geometry import ArrayGeometry as TGeometry
-from distantspeech_tpu_torch.ops import cuda_aec as ca, cuda_flms as cf
 from distantspeech_tpu_torch.runtime import full_stack as tfs
+from distantspeech_tpu_torch.runtime.profiling import counters, reset_counters
 
 ANG = (np.pi / 2, 0.0)
 M, T = 4, 20
@@ -59,13 +59,10 @@ def test_fused_plain_chain_matches_jax_fused():
     far, x = _scene(8, T * 256, 2)
     want = jfs.full_stack_process(jnp.asarray(x), jnp.asarray(far), JGeometry.linear(M, 0.032), ANG,
                                   jfs.FullStackConfig(n_mics=M), backend="fused")
-    for k in ca.LAUNCHES:
-        ca.LAUNCHES[k] = 0
-    for k in cf.LAUNCHES:
-        cf.LAUNCHES[k] = 0
+    reset_counters()
     got = tfs.full_stack_process(x, far, TGeometry.linear(M, 0.032), ANG, tfs.FullStackConfig(n_mics=M),
                                  backend="fused", device="cpu")
-    assert sum(ca.LAUNCHES.values()) + sum(cf.LAUNCHES.values()) == 0
+    assert not any(k.startswith("launch.") for k in counters())
     (o1, k1, p1), (o2, k2, p2) = (np.asarray(a) for a in want), (a.numpy() for a in got)
     assert o2.dtype == np.float32 and o2.shape == (8, T * 256) and p2.shape == (8, T, 257)
     assert _rel(o2, o1) < 1e-4

@@ -17,6 +17,7 @@ from distantspeech_tpu_torch.array.steering import steering_vector
 from distantspeech_tpu_torch.beamform import enhance as tenh
 from distantspeech_tpu_torch.beamform.mvdr import MvdrConfig as TMvdrConfig
 from distantspeech_tpu_torch.ops import cuda_enhance as ce
+from distantspeech_tpu_torch.runtime.profiling import counters, reset_counters
 
 M = 4
 
@@ -74,7 +75,7 @@ def test_cpu_tensors_take_the_plain_version(float32_case, backend):
     backends, are the plain version exactly (and launch nothing)."""
     x, _, cfg = float32_case
     x = torch.as_tensor(x[:2, :, : 128 * 21 + 50])  # a sub-hop tail is dropped
-    ce.LAUNCHES.update(fused_enhance=0, fused_enhance_full=0)
+    reset_counters()
     want = ce.fused_enhance_plain(x, _steer(np.complex64), cfg, inv_mode="rank1", t_chunk=8)
     wrapper = ce.fused_enhance_full if backend == "mega" else ce.fused_enhance
     got = wrapper(x, _steer(np.complex64), cfg, inv_mode="rank1", t_chunk=8)
@@ -83,7 +84,7 @@ def test_cpu_tensors_take_the_plain_version(float32_case, backend):
                                inv_mode="rank1", device="cpu", t_chunk=8)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert got.shape == (2, 128 * 21)
-    assert ce.LAUNCHES == {"fused_enhance": 0, "fused_enhance_full": 0}
+    assert not counters()  # no launch, and the planes came from the CPU without a host sync
 
 
 def test_validation():

@@ -16,6 +16,7 @@ from distantspeech_tpu.ops.pallas_flms import fused_kws as j_fused
 from distantspeech_tpu_torch import convert
 from distantspeech_tpu_torch.kws import dual_mic as tk
 from distantspeech_tpu_torch.ops import cuda_flms as cf
+from distantspeech_tpu_torch.runtime.profiling import counters, reset_counters
 
 DEFER = dict(defer_seconds=0.1)
 T = 20
@@ -69,12 +70,12 @@ def test_fused_plain_matches_pallas_interpret():
 
 def test_fused_routing_and_strided_input():
     """A CPU tensor runs the plain version, also from a strided view (mics
-    0/1 of a wider array), and LAUNCHES stays 0."""
+    0/1 of a wider array), and launches nothing."""
     x = torch.as_tensor(_scene(3, 6 * 256 + 50, 3))
     wide = torch.cat([x, x[:, :1]], dim=1)[:, :2]
-    cf.LAUNCHES["fused_kws"] = 0
+    reset_counters()
     got = cf.fused_kws(wide, tk.DualMicKwsConfig(**DEFER))
-    assert cf.LAUNCHES["fused_kws"] == 0 and got.shape == (3, 6 * 256)
+    assert "launch.fused_kws" not in counters() and got.shape == (3, 6 * 256)
     assert torch.equal(got, cf.fused_kws_plain(x, tk.DualMicKwsConfig(**DEFER)))
     with pytest.raises(ValueError, match="B, 2, S"):
         cf.fused_kws(x[:, :1])

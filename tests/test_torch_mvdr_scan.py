@@ -19,6 +19,7 @@ from distantspeech_tpu_torch.beamform import enhance as tenh
 from distantspeech_tpu_torch.beamform.mvdr import MvdrConfig as TMvdrConfig
 from distantspeech_tpu_torch.noise.mcra import mcra_run as t_mcra_run
 from distantspeech_tpu_torch.ops import cuda_mvdr as cm
+from distantspeech_tpu_torch.runtime.profiling import counters, reset_counters
 from distantspeech_tpu_torch.transform import analysis as t_analysis
 
 M = 4
@@ -52,10 +53,10 @@ def test_plain_matches_pallas_interpret(gain):
 def test_cpu_tensors_take_the_plain_version():
     Z, gate, steer, p, lam = _spectra(2)
     args = (torch.as_tensor(Z), torch.as_tensor(gate), torch.as_tensor(steer))
-    cm.LAUNCHES["fused_mvdr_scan"] = 0
+    reset_counters()
     kw = dict(p=torch.as_tensor(p), lam=torch.as_tensor(lam))
     assert torch.equal(cm.fused_mvdr_scan(*args, **kw), cm.fused_mvdr_scan_plain(*args, **kw))
-    assert cm.LAUNCHES["fused_mvdr_scan"] == 0
+    assert "launch.fused_mvdr_scan" not in counters()
 
 
 def test_api_validation():
@@ -120,11 +121,11 @@ def test_enhance_process_pallas_matches_jax(vad_guard, tol):
     kw = dict(mcra_L=15, vad_guard=vad_guard, rel_diag=1e-5)
     cfg_j, cfg_t = jenh.EnhanceConfig(mvdr=JMvdrConfig(**kw)), tenh.EnhanceConfig(mvdr=TMvdrConfig(**kw))
     want = _jax_pallas_backend(x, cfg_j)
-    cm.LAUNCHES["fused_mvdr_scan"] = 0
+    reset_counters()
     got = tenh.enhance_process(x, TGeometry.linear(M, 0.032), (90.0, 0.0), cfg_t, backend="pallas", device="cpu")
     exact = tenh.enhance_process(x.astype(np.float64), TGeometry.linear(M, 0.032), (90.0, 0.0), cfg_t,
                                  backend="pallas", device="cpu").numpy()
-    assert cm.LAUNCHES["fused_mvdr_scan"] == 0
+    assert "launch.fused_mvdr_scan" not in counters()
     assert got.dtype == torch.float32 and got.shape == want.shape
     gate_j = _gate(j_analysis(jnp.asarray(x), cfg_j.stft), cfg_j, lambda c, y, **k: j_mcra_run(c, jnp.asarray(y), **k))
     gate_t = _gate(t_analysis(torch.as_tensor(x), cfg_t.stft), cfg_t, lambda c, y, **k: t_mcra_run(c, torch.as_tensor(y), **k))

@@ -17,6 +17,7 @@ from distantspeech_tpu.ops.pallas_srp import fused_srp_spectrum as j_fused
 from distantspeech_tpu_torch.array.geometry import ArrayGeometry as TGeometry
 from distantspeech_tpu_torch.doa import srp as tsrp
 from distantspeech_tpu_torch.ops import cuda_srp as cr
+from distantspeech_tpu_torch.runtime.profiling import counters, reset_counters
 
 
 def _rel(got, want):
@@ -100,10 +101,10 @@ def test_pack_grid_layout():
 def test_fused_backend_runs_the_plain_version_on_cpu():
     x = torch.as_tensor(np.random.default_rng(2).standard_normal((3, 4, 4000)).astype(np.float32))
     geom = TGeometry.linear(4, 0.032)
-    cr.LAUNCHES["fused_srp_spectrum"] = 0
+    reset_counters()
     s1, p1 = tsrp.srp_process(x, geom, backend="fused", device="cpu")
     s2, p2 = tsrp.srp_process(x, geom, device="cpu")
-    assert cr.LAUNCHES["fused_srp_spectrum"] == 0
+    assert "launch.fused_srp_spectrum" not in counters()
     assert s1.shape == s2.shape == (3, 31, 360) and s1.dtype == torch.float32
     assert _rel(s1, s2) < 1e-5 and torch.equal(p1, p2)
     with pytest.raises(ValueError, match="backend"):

@@ -29,6 +29,7 @@ from distantspeech_tpu_torch.beamform import subband_gsc as tsg
 from distantspeech_tpu_torch.coherence import msc as tmsc
 from distantspeech_tpu_torch.noise import mccdr as tcdr, mcspp as tspp, mcspp_base as tspb
 from distantspeech_tpu_torch.ops import cuda_flms as cf, cuda_sgsc as cs
+from distantspeech_tpu_torch.runtime.profiling import counters, reset_counters
 from distantspeech_tpu_torch.stats import linalg as tla
 
 ANG = (np.pi / 2, 0.0)
@@ -311,10 +312,10 @@ def test_chained_step_matches_process():
 def test_fused_backend_runs_the_plain_version_on_cpu():
     x = torch.as_tensor(_scene(3, 6 * L + 10, 6, np.float32))  # any B
     cfg = tsg.SubbandGscConfig(n_mics=M)
-    cs.LAUNCHES["fused_subband_gsc"] = 0
+    reset_counters()
     got = tsg.subband_gsc_process(x, TGeometry.linear(M, 0.032), ANG, cfg, backend="fused", device="cpu")
     want = cs.fused_subband_gsc_plain(x, TGeometry.linear(M, 0.032), ANG, cfg)
-    assert cs.LAUNCHES["fused_subband_gsc"] == 0
+    assert "launch.fused_subband_gsc" not in counters()
     assert got[0].shape == (3, 6 * L) and got[1].shape == (3, 6, L + 1) and got[2].shape == (3, M, 6 * L)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and torch.equal(g, w)

@@ -18,6 +18,7 @@ from distantspeech_tpu_torch import convert
 from distantspeech_tpu_torch.array.geometry import ArrayGeometry as TGeometry
 from distantspeech_tpu_torch.beamform import tdgsc as tt
 from distantspeech_tpu_torch.ops import cuda_flms as cf
+from distantspeech_tpu_torch.runtime.profiling import counters, reset_counters
 
 ANG = (np.pi / 2, 0.0)
 B, M, S = 8, 4, 4096
@@ -84,10 +85,10 @@ def test_vad_guard_binds(fused_cases):
 def test_fused_backend_runs_the_plain_version_on_cpu():
     x = torch.as_tensor(_noise(5)[:3, :, : 256 * 6 + 100])  # any B; a sub-frame tail is dropped
     cfg = tt.TdGscConfig(n_mics=M, postfilter=True)
-    cf.LAUNCHES["fused_tdgsc"] = 0
+    reset_counters()
     got = tt.tdgsc_process(x, TGeometry.linear(M, 0.032), ANG, cfg, backend="fused", device="cpu")
     want = cf.fused_tdgsc_plain(x, TGeometry.linear(M, 0.032), ANG, cfg)
-    assert cf.LAUNCHES["fused_tdgsc"] == 0
+    assert "launch.fused_tdgsc" not in counters()
     assert got[0].shape == (3, 256 * 6) and got[1].shape == (3, 6, 257) and got[2].shape == (3, M - 1, 256 * 6)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
