@@ -73,7 +73,12 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    echo scene (one launch each of K7, K6 and K5; finite; the AEC's echo
    return loss enhancement on mic 0 above 10 dB; output SNR above mic 0's),
    each kernel and the whole chain held to the plain versions at that size;
-   timings of each stage and of the path;
+   timings of each stage and of the path; then the TDGSC front end's
+   kernel (``gsc_front``, ``csrc/gsc_front.cu``, ``smoke_front``) at
+   B=128 x 4 x 4 s on the ReSpeaker circle at 197 degrees: one launch, bm
+   and d within 1e-5 of max of the plain front end on the card, the
+   powers within 1e-4, each also against the float64 plain version; its
+   time beside its bound (``front_end_work``) and the plain version's;
 11. the FDGSC (B4) at full size through ``fdgsc_process(x,
    ArrayGeometry.linear(4, 0.032), (pi/2, 0), FdGscConfig(n_mics=4),
    backend="fused")`` on B=128 x 4 x 4 s (one K8 launch, finite, output SNR
@@ -172,7 +177,7 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    their main paths' sizes (``SLICE_G2_SIZES``) launch their kernels once a
    call, counted from 0 (``make_sharded_enhance_mega`` with
    ``inv_mode='rank1'`` K4; ``make_sharded_enhance_pallas`` the MCRA lanes
-   and K1; ``make_sharded_tdgsc_fused`` K5), and with the scan runners
+   and K1; ``make_sharded_tdgsc_fused`` the front end and K5), and with the scan runners
    (enhance, WPE, GSC, subband GSC) each equals its unsharded twin to the
    bit or within ``SLICE_G2_BAR`` of max|twin|, printed; each pair timed in
    turns (twin, sharded, sharded, twin), ms/call and audio-s/s with the
@@ -206,6 +211,10 @@ H100_FP32_FLOPS = 67e12  # NVIDIA H100 SXM data sheet, float32 outside the tenso
 H100_TF32_FLOPS = 495e12  # the same, TF32 on the tensor cores (dense)
 H100_HBM_BYTES = 3.35e12  # bytes/s
 TIGHT, FLIP = 1e-3, 2e-2  # kernel gates (bench.py's two gates)
+# the TDGSC front end's bm and d against the plain front end: float32
+# rounding in another order (a sample-by-sample notch and a direct FIR
+# against blocked products), ~1e-6 in the CPU rehearsal
+TIGHT_FRONT = 1e-5
 K1_GATE = 1e-4  # K1 and its plain version see the same gate: no decision can flip
 SRP_GATE = 1e-4  # K10: a sum of magnitudes, no decision inside
 
@@ -407,6 +416,7 @@ def main() -> int:
     kernels += smoke_k1(dev, card, B=64, seconds=4)
     kernels += smoke_k5(dev, card, B=128, seconds=4)
     kernels += smoke_slice_c(dev, card, B=128, seconds=4)
+    kernels += smoke_front(dev, card, B=128, seconds=4)
     kernels += smoke_k9(dev, card, B=128, seconds=4)
     kernels += smoke_k10(dev, card, B=8, seconds=4)
     kernels += smoke_wide(dev, card, seconds=4)
@@ -1189,6 +1199,74 @@ def smoke_k5(dev, card: str, B: int, seconds: int) -> list:
     return recs
 
 
+def front_end_work(B, M, T, Lf, K, postfilter):
+    """(operations, bytes) of the TDGSC front end on B utterances of M mics
+    and T frames: the mics read and bm, d, yp (and up) written once; per
+    sample and mic the notch's coupled recurrence (15) and the direct FIR
+    (2 K), per sample the beam and the blocking matrix (2 M - 1), and per
+    frame of the beam (and of each blocking-matrix channel with the
+    postfilter) a real 2 Lf-point FFT at 2.5 N log2 N + N and its power (3
+    a bin)."""
+    S, N, F, C = T * Lf, 2 * Lf, Lf + 1, M - 1
+    nsig = M if postfilter else 1
+    ops = B * (M * S * (15 + 2 * K) + S * (2 * M - 1) + nsig * T * (2.5 * N * np.log2(N) + N + 3 * F))
+    nbytes = 4 * B * (M * S + C * S + S + T * F + (C * T * F if postfilter else 0))
+    return ops, nbytes
+
+
+def smoke_front(dev, card: str, B: int, seconds: int) -> list:
+    """The TDGSC front end's kernel (``ops.cuda_flms.gsc_front``,
+    ``csrc/gsc_front.cu``) at the full stack's shape: B x 4 mics (the
+    ReSpeaker circle at 197 degrees, K = 84) x 4 s of ``scene`` over a DC
+    offset, with the postfilter's powers; held to the plain front end on the
+    card (bm and d < 1e-5 of max, the powers < 1e-4), both printed against
+    the float64 plain version; timed beside its bound and the plain
+    version."""
+    import torch
+
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+    from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig
+    from distantspeech_tpu_torch.ops import cuda_flms as cf
+    from distantspeech_tpu_torch.runtime.profiling import benchmark
+
+    tag = f"[{card}]"
+    M, S = 4, seconds * FS
+    geom, look = ArrayGeometry.circular(M, 0.032), (np.deg2rad(197.0), 0.0)
+    cfg = TdGscConfig(n_mics=M, postfilter=True)
+    x = torch.as_tensor(scene(B, M, S, seed=12)[0] + np.float32(0.1), device=dev)
+
+    def plain(xx):
+        fbf, bm = cf.front_end(xx, geom, look, cfg)
+        return (bm, *cf._kernel_inputs(fbf, bm, cfg))
+
+    reset_launches()
+    got = cf.gsc_front(x, geom, look, cfg)
+    torch.cuda.synchronize()
+    check(launch_counts() == Counter({"gsc_front": 1}), f"gsc_front launched {dict(launch_counts())}")
+    want = plain(x)
+    plain_ms = timed_ms(plain, x)
+    want64 = plain(x.double())
+    names, gaps = ("bm", "d", "yp", "up"), []
+    for name, g, w, w64, tol in zip(names, got, want, want64, (TIGHT_FRONT, TIGHT_FRONT, 1e-4, 1e-4)):
+        rel, _ = rel_err(g, w)
+        gaps.append(rel)
+        check(bool(torch.isfinite(g).all()) and rel < tol, f"gsc_front {name} vs plain (B={B}, {seconds} s): rel "
+                                                           f"{rel:.3e} < {tol:g}")
+        print(f"gsc_front {name} against the float64 plain version: kernel rel {rel_err(g, w64)[0]:.3e}, float32 "
+              f"plain rel {rel_err(w, w64)[0]:.3e}", flush=True)
+    taps = cf._alignment_taps(x, geom, look)
+    ms = benchmark(cf.gsc_front_kernel, x, taps, cfg)["per_call_s"] * 1e3
+    ops, nbytes = front_end_work(B, M, S // cfg.frame_len, cfg.frame_len, taps.shape[-1], cfg.postfilter)
+    b, by = bound(nbytes, ops)
+    print(f"gsc_front (the TDGSC front end, B={B} x {M} x {seconds} s, K={taps.shape[-1]}): kernel {ms:.4f} ms/call, "
+          f"bound {b:.4f} ms by {by} ({nbytes} B; {ops:.4g} ops; {100 * b / ms:.1f}% of it), plain {plain_ms:.3f} ms "
+          f"{tag}", flush=True)
+    return [{"name": "gsc_front", "route": "cuda", "source": "distantspeech_tpu_torch/csrc/gsc_front.cu",
+             "replaces": "none (the TDGSC front end: ops/cuda_flms.py front_end, _kernel_inputs)", "launches": 1,
+             "max_abs_err": max(gaps), "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+             "library_ms": None}]
+
+
 def echo_scene(B, M, S, seed):
     """The full stack's scene: a far end of white noise x 0.5; its echo
     through one 256-tap decaying path (randn exp(-n/40)), the same on every
@@ -1377,8 +1455,9 @@ def smoke_slice_c(dev, card: str, B: int, seconds: int) -> list:
     out, kws_clean, p = full_stack_process(x, far, geom, look, fcfg, backend="fused")
     torch.cuda.synchronize()
     counts = launch_counts()
-    check({k: counts[k] for k in ("fused_aec", "fused_kws", "fused_tdgsc")} == {"fused_aec": 1, "fused_kws": 1, "fused_tdgsc": 1}
-          and sum(counts.values()) == 3, f"full_stack_process fused launched K7, K6 and K5 once each: {counts}")
+    want = {"fused_aec": 1, "fused_kws": 1, "gsc_front": 1, "fused_tdgsc": 1}
+    check({k: counts[k] for k in want} == want and sum(counts.values()) == len(want),
+          f"full_stack_process fused launched K7, K6, the front end and K5 once each: {counts}")
     launches = dict(counts)
     T = S // fcfg.frame_len
     Sp = T * fcfg.frame_len
@@ -2031,7 +2110,7 @@ def smoke_wide(dev, card: str, seconds: int) -> list:
     xs = torch.as_tensor(scene(B, M, S, seed=4)[0], device=dev)
     c5 = TdGscConfig(n_mics=M)
     (out, p, _), n = path(f"tdgsc_process fused [M=12] (B={B})", lambda: tdgsc_process(xs, geom, look, c5, backend="fused"),
-                          "fused_tdgsc")
+                          "fused_tdgsc", other=("gsc_front",))
     ins = k5_inputs(xs, c5, geom)
     (want, _), plain_ms = timed_once(cf.tdgsc_frames_plain, *ins, c5)
     rel, mx = rel_err(out, want)
@@ -2846,7 +2925,7 @@ def slice_g2_runners(mesh, dev) -> dict:
                    lambda x: enhance_process(x, geom8, look, cfg, backend="pallas", device=dev), 32,
                    {"mcra_run": 1, "fused_mvdr_scan": 1}),
         "tdgsc": (make_sharded_tdgsc_fused(mesh, geom4, ang, tcfg), lambda x: fused_tdgsc(x, geom4, ang, tcfg), 33,
-                  {"fused_tdgsc": 1}),
+                  {"gsc_front": 1, "fused_tdgsc": 1}),
         "enhance": (make_sharded_enhance(mesh, geom8, look, cfg),
                     lambda x: enhance_process(x, geom8, look, cfg, device=dev), 34, {}),
         "wpe": (make_sharded_wpe(mesh, wcfg), lambda x: wpe_process(x, wcfg, device=dev), 35, {}),

@@ -25,14 +25,16 @@ same plus the OM-LSA-multi postfilter: a windowed STFT of the canceller
 output, 1 + C MCRA trackers, the TBRR absence probability and
 decision-directed gain, sqrt(G), and the windowed ISTFT overlap-add).
 
-``fused_tdgsc`` is ``tdgsc_process(backend="fused")``.  The bulk
-preprocessing is plain PyTorch outside the kernel, as in the JAX package:
-DC notch, alignment FIR, fixed beamformer (channel mean) and pairwise
+``fused_tdgsc`` is ``tdgsc_process(backend="fused")``.  Its front end
+(DC notch, alignment FIR, fixed beamformer (channel mean) and pairwise
 blocking matrix, the FBF STFT power that MCRA reads, the blocking-matrix
 STFT powers of the postfilter, and the desired signal delayed by
-filter_len / 2.  ``tdgsc_frames`` runs the frame recursion: on a CPU
-tensor its plain version ``tdgsc_frames_plain``, on a CUDA tensor the
-kernel (or it raises).
+filter_len / 2) is ``gsc_front``: on a CPU tensor its plain version
+``front_end`` + ``_kernel_inputs`` (plain PyTorch, as the JAX package
+leaves it to XLA), on a CUDA tensor one kernel (``csrc/gsc_front.cu``, or
+it raises).  ``tdgsc_frames`` runs the frame recursion: on a CPU tensor its
+plain version ``tdgsc_frames_plain``, on a CUDA tensor the kernel (or it
+raises).
 
 All F = n_fft/2 + 1 bins are uniform lanes; the TPU kernel's packing (the
 Nyquist bin in imag lane 0, the postfilter's Nyquist lane slots) is not
@@ -143,15 +145,23 @@ def _check(x: torch.Tensor, cfg):
     return x[..., : T * Lf]
 
 
-def aligned_mics(x: torch.Tensor, geometry, angle_rad) -> torch.Tensor:
-    """The DC notch (radius 0.98) and fractional-delay alignment of x
-    [..., M, S]."""
-    _, xn = dc_notch(dc_notch_init(x.shape[:-1], dtype=x.dtype, device=x.device), x, radius=0.98)
+NOTCH_RADIUS = 0.98  # the TDGSC's DC notch (speex's radius)
+
+
+def _alignment_taps(x: torch.Tensor, geometry, angle_rad) -> torch.Tensor:
+    """The alignment FIR bank [M, K] on x's device, in x's dtype."""
     with span("ds.prep.alignment"):
         coeffs = torch.as_tensor(time_alignment_filters(geometry, angle_rad), dtype=x.dtype, device=x.device)
         if x.device.type == "cuda":  # from pageable memory: waits for the stream
             count("host_sync.prep.alignment")
-    return fir_filter_offline(xn, coeffs)
+    return coeffs
+
+
+def aligned_mics(x: torch.Tensor, geometry, angle_rad) -> torch.Tensor:
+    """The DC notch (radius 0.98) and fractional-delay alignment of x
+    [..., M, S]."""
+    _, xn = dc_notch(dc_notch_init(x.shape[:-1], dtype=x.dtype, device=x.device), x, radius=NOTCH_RADIUS)
+    return fir_filter_offline(xn, _alignment_taps(x, geometry, angle_rad))
 
 
 def front_end(x: torch.Tensor, geometry, angle_rad, cfg):
@@ -340,10 +350,12 @@ _LAUNCHERS = {
     "flms": ("fused_tdgsc_launch", "ppppppppiiiipp"),  # K5
     "kws": ("fused_kws_launch", "pppppiiiipp"),  # K6
     "fdgsc": ("fused_fdgsc_launch", "pppppppppiiiipp"),  # K8
+    "gsc_front": ("gsc_front_launch", "piippppppppiiiiipp"),  # the TDGSC front end
 }
 # csrc/<name>.cu -> the function that says how much global scratch a launch
 # needs (floats, -1 for a shape it does not take), and its int arguments
-_SCRATCH = {"flms": ("fused_tdgsc_scratch_floats", 4), "fdgsc": ("fused_fdgsc_scratch_floats", 3)}
+_SCRATCH = {"flms": ("fused_tdgsc_scratch_floats", 4), "fdgsc": ("fused_fdgsc_scratch_floats", 3),
+            "gsc_front": ("gsc_front_scratch_floats", 4)}
 
 
 def _library(name: str = "flms") -> ctypes.CDLL:
@@ -405,10 +417,107 @@ def tdgsc_frames(bm: torch.Tensor, d: torch.Tensor, yp: torch.Tensor, up, cfg):
     return out, p
 
 
+# ---- the TDGSC front end: csrc/gsc_front.cu --------------------------------
+
+NOTCH_CHUNK = 16  # samples of a notch chunk in csrc/gsc_front.cu (kChunk)
+NOTCH_POWERS = 33  # its table's powers A^(16 k), k = 0 .. 32 (kPowers)
+
+
+def notch_coupled(radius: float = NOTCH_RADIUS):
+    """``dc_notch`` (speex's notch, radius r) as the state-space system
+    s' = A s + b x, y = c . s + d x in its coupled form: A = [[sigma, omega],
+    [-omega, sigma]] with sigma +- i omega its poles (float64 (A, b, c, d)).
+    The same filter from the same zero state as speex's companion form
+    (mem' = [[2r, 1], [-den2, 0]] mem + [2r - 2, 1 - den2] x, y = r (mem0 +
+    x)), whose float32 rounding the pole pair near z = 1 amplifies about 40
+    times more when it is run sample by sample (7e-6 of max|y| against
+    1.6e-7 on a burst scene with a DC offset; ``dc_notch``'s blocked
+    evaluation keeps 9e-7)."""
+    den2 = radius * radius + 0.7 * (1.0 - radius) * (1.0 - radius)
+    A = np.array([[2.0 * radius, 1.0], [-den2, 0.0]])
+    lam, V = np.linalg.eig(A)
+    v = V[:, np.argmax(lam.imag)]
+    P = np.stack([v.real, v.imag], axis=1)  # A P = P [[sigma, omega], [-omega, sigma]]
+    Pi = np.linalg.inv(P)
+    return Pi @ A @ P, Pi @ np.array([2.0 * radius - 2.0, 1.0 - den2]), np.array([radius, 0.0]) @ P, radius
+
+
+@functools.lru_cache(maxsize=None)
+def notch_chunk_powers(radius: float = NOTCH_RADIUS) -> np.ndarray:
+    """[NOTCH_POWERS, 4] float64: A^(NOTCH_CHUNK k), k = 0 .. NOTCH_POWERS - 1,
+    each row-major, A ``notch_coupled``'s: the notch's zero-input state map
+    over k chunks, which the kernel's scan of the chunk maps composes."""
+    A16 = np.linalg.matrix_power(notch_coupled(radius)[0], NOTCH_CHUNK)
+    return np.stack([np.linalg.matrix_power(A16, k).ravel() for k in range(NOTCH_POWERS)])
+
+
+@functools.lru_cache(maxsize=16)
+def _notch_table(device) -> torch.Tensor:
+    return torch.as_tensor(notch_chunk_powers(), dtype=torch.float32, device=device)
+
+
+class _GscFrontParams(ctypes.Structure):
+    """Mirror of ``GscFrontParams`` in csrc/gsc_front.cu."""
+
+    _fields_ = [(name, ctypes.c_float) for name in ("a00", "a01", "a10", "a11", "b0", "b1", "c0", "c1", "dd", "inv_m")]
+
+
+def _gsc_front_params(M: int) -> _GscFrontParams:
+    A, b, c, dd = notch_coupled()
+    return _GscFrontParams(a00=A[0, 0], a01=A[0, 1], a10=A[1, 0], a11=A[1, 1], b0=b[0], b1=b[1], c0=c[0], c1=c[1],
+                           dd=dd, inv_m=1.0 / M)
+
+
+def gsc_front(x: torch.Tensor, geometry, angle_rad, cfg):
+    """The TDGSC front end, K5's inputs from the mics x [B, M, S'] (S' whole
+    frames): (bm [B, M-1, S'], d [B, S'], yp [B, T, F], up [B, M-1, T, F] or
+    None without the postfilter), each contiguous.  A CPU tensor runs the
+    plain version (``front_end`` + ``_kernel_inputs``); a CUDA tensor
+    launches ``csrc/gsc_front.cu`` (float32; the samples of x contiguous) or
+    raises."""
+    if x.device.type == "cpu":
+        fbf, bm = front_end(x, geometry, angle_rad, cfg)
+        bm = bm.contiguous()
+        return (bm, *(a.contiguous() if a is not None else None for a in _kernel_inputs(fbf, bm, cfg)))
+    B, M, S = x.shape
+    Lf = cfg.frame_len
+    T, F = S // Lf, Lf + 1
+    if x.dtype != torch.float32 or x.stride(-1) != 1:
+        raise ValueError("gsc_front: the kernel takes float32 mics with contiguous samples")
+    if M < 2 or S != T * Lf or T < 1:
+        raise ValueError(f"gsc_front: x must be [B, M >= 2, S'] with S' whole frames of {Lf}, got {tuple(x.shape)}")
+    return gsc_front_kernel(x, _alignment_taps(x, geometry, angle_rad), cfg)
+
+
+def gsc_front_kernel(x: torch.Tensor, taps: torch.Tensor, cfg):
+    """``gsc_front``'s launch on the checked mics x [B, M, S'] and the
+    alignment taps [M, K], both on the card."""
+    _build.check_tensors("gsc_front", taps)
+    B, M, S = x.shape
+    Lf = cfg.frame_len
+    T, F, K = S // Lf, Lf + 1, taps.shape[-1]
+    dev = x.device
+    bm = torch.empty((B, M - 1, S), dtype=torch.float32, device=dev)
+    d = torch.empty((B, S), dtype=torch.float32, device=dev)
+    yp = torch.empty((B, T, F), dtype=torch.float32, device=dev)
+    up = torch.empty((B, M - 1, T, F), dtype=torch.float32, device=dev) if cfg.postfilter else None
+    scratch = _scratch("gsc_front", dev, M, B, Lf, K)
+    params = _gsc_front_params(M)
+    err = _library("gsc_front").gsc_front_launch(
+        x.data_ptr(), x.stride(0), x.stride(1), taps.data_ptr(), _tables(2 * Lf, dev).data_ptr(),
+        _notch_table(dev).data_ptr(), bm.data_ptr(), d.data_ptr(), yp.data_ptr(),
+        up.data_ptr() if up is not None else None, scratch.data_ptr() if scratch is not None else None,
+        B, M, T, Lf, K, ctypes.addressof(params), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check_launch("gsc_front", err, "gsc_front")
+    count("launch.gsc_front")
+    return bm, d, yp, up
+
+
 def fused_tdgsc(x, geometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0), cfg=None):
     """Fused TDGSC (``cfg.postfilter`` selects the postfilter variant):
     x [B, M, S] -> (out [B, S'], p [B, T, F], bm [B, M-1, S']), like
-    ``beamform.tdgsc.tdgsc_process``.  The front end runs as plain PyTorch,
+    ``beamform.tdgsc.tdgsc_process``.  The front end runs in ``gsc_front``,
     the frame loop in ``tdgsc_frames``.  A tensor stays on its device;
     other inputs go to the card."""
     if cfg is None:
@@ -416,11 +525,15 @@ def fused_tdgsc(x, geometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0), cfg=None):
 
         cfg = TdGscConfig()
     x = _check(wrapper_input(x), cfg)
-    with span("ds.k5.front_end"):
-        fbf, bm = front_end(x, geometry, angle_rad, cfg)
-        bm = bm.contiguous()
-    with span("ds.k5.kernel_inputs"):
-        d, yp, up = (a.contiguous() if a is not None else None for a in _kernel_inputs(fbf, bm, cfg))
+    if x.device.type == "cuda":
+        with span("ds.k5.front_end"):
+            bm, d, yp, up = gsc_front(x if x.stride(-1) == 1 else x.contiguous(), geometry, angle_rad, cfg)
+    else:
+        with span("ds.k5.front_end"):
+            fbf, bm = front_end(x, geometry, angle_rad, cfg)
+            bm = bm.contiguous()
+        with span("ds.k5.kernel_inputs"):
+            d, yp, up = (a.contiguous() if a is not None else None for a in _kernel_inputs(fbf, bm, cfg))
     return (*tdgsc_frames(bm, d, yp, up, cfg), bm)
 
 

@@ -1,7 +1,8 @@
 """K5 (csrc/flms.cu, core and postfilter), K8 (csrc/fdgsc.cu), K7
 (csrc/aec.cu), K4 (csrc/enhance.cu's mega kernel) and K2 (its lane kernel),
-K9 (csrc/sgsc.cu), K1 (csrc/mvdr.cu), K6 (csrc/kws.cu), K10 (csrc/srp.cu)
-and the MCRA lane kernel (csrc/mcra.cu) rehearsed on the CPU: each source compiled
+K9 (csrc/sgsc.cu), K1 (csrc/mvdr.cu), K6 (csrc/kws.cu), K10 (csrc/srp.cu),
+the MCRA lane kernel (csrc/mcra.cu) and the TDGSC front end
+(csrc/gsc_front.cu) rehearsed on the CPU: each source compiled
 with g++ against the fiber shim in ``tests/torch_cuda_shim``,
 launched through its C launcher on CPU buffers and held to the kernel's
 plain version at 1e-4 of max|out| (bm likewise, p absolutely).  K5 and K8
@@ -37,7 +38,12 @@ two a thread; 20 with the gain only).  K6 runs B=2 x 12
 frames at Lf 256 and 128 with the defer cut so that its tap FIFO wraps,
 and with Dn = 2 and 1, its gap taken against max|d| (the output is the
 residual the cleaner leaves); before the FIFO wraps its output must be d
-to the bit.  The launches run in child processes (one per kernel family, at
+to the bit.  The TDGSC front end runs B=2 utterances of three tiles or
+more (the last partial) at the cells' 4 mics with and without the
+postfilter and from a strided view, at 2, 3 and 8 mics on a linear array
+(K > 84 at 8), at 16 mics and at Lf=2048 (its buffers in a global scratch),
+and at Lf=2048 and 2 with 3 mics; bm and d are held to 1e-5 of their max,
+the powers to 1e-4.  The launches run in child processes (one per kernel family, at
 once) with a time limit (``rehearse.py``); mismatched barriers abort the
 child (the shim finds a block whose threads all wait) and fail the test."""
 
@@ -57,7 +63,7 @@ TOL = 1e-4
 # this order, each with its own time limit
 GROUPS = (("k5", "k8", "mcra"), ("k7",), ("k4-rank1-256", "k4-ldl-256"), ("k4-rank1-512", "k4-rank1-1024"), ("k9",),
           ("k1",), ("k6", "k10"), ("k2-rank1-256-m28",), ("k2-rank1-64", "k2-ldl-64"),
-          ("k4-rank1-768", "k4-rank1-1280", "k4-rank1-2048"), ("k2-rank1-256-m12",))
+          ("k4-rank1-768", "k4-rank1-1280", "k4-rank1-2048"), ("k2-rank1-256-m12",), ("front",))
 
 
 @pytest.fixture(scope="module")
@@ -85,6 +91,17 @@ def gaps(libs):
 def test_kernel_source_matches_plain_version(gaps, case):
     g = gaps[case]
     assert g["err"] == 0, f"{case}: the launcher returned CUDA error {g['err']}"
+    if case.startswith("front"):
+        # bm and d to 1e-5 of their max (the coupled notch run sample by
+        # sample and a direct FIR against blocked products: ~1e-6 apart, each
+        # as far from float64), the powers to 1e-4 (an FFT against a dense
+        # DFT product, squared)
+        for name, tol in (("bm", 1e-5), ("d", 1e-5), ("yp", 1e-4), ("up", 1e-4)):
+            assert g.get(name, 0.0) < tol, f"{case}: {name} {g.get(name):.3e} of max|{name}| from the plain version"
+        assert ("up" in g) == ("-core-" not in case)
+        assert (g["scratch_floats"] > 0) == (case in ("front-pf-256-m16", "front-pf-2048")), g["scratch_floats"]
+        assert case.endswith(("-256", "-256-m16", "-128-m2", "-128-m3", "-2-m3", "-2048-m3", "-2048")) or g["K"] > 84
+        return
     # K6 with Dn = 1 outputs the ANC's own error, whose float32 trajectory
     # through the 1 / P normalisation of the first frames' weak bins parts
     # from the plain version's DFT products by ~1.5e-4 of max|d| (the design
@@ -180,6 +197,35 @@ def test_launchers_refuse_shapes_just_outside_their_ranges(libs):
     refused, scratch, k4_bad, k4_no_scratch, k8_bad, k9_bad = (json.loads(v) for v in run.stdout.strip().split(";"))
     assert refused == [-1] * 3 and scratch[0] == 0 and all(n > 0 for n in scratch[1:])
     assert all(e != 0 for e in k4_bad + k4_no_scratch + k8_bad + k9_bad)
+
+
+def test_the_front_end_launcher_refuses_what_it_does_not_take(libs):
+    """The TDGSC front end's launcher refuses one mic, an Lf that is not a
+    power of two from 2 to 2048, no taps, no utterance and no frame, and a
+    shape whose buffers need a global scratch (16 mics at Lf=256) when it is
+    given none; its scratch is 0 at the cells' shape."""
+    code = (
+        "import ctypes\n"
+        f"lib = ctypes.CDLL({str(libs['gsc_front'])!r})\n"
+        "params = (ctypes.c_float * 16)()\n"
+        "buf = (ctypes.c_float * 8)()\n"
+        "a, pp = ctypes.addressof(buf), ctypes.addressof(params)\n"
+        "sc = lib.gsc_front_scratch_floats\n"
+        "sc.argtypes, sc.restype = [ctypes.c_int] * 4, ctypes.c_longlong\n"
+        "fn = lib.gsc_front_launch\n"
+        "fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5"
+        " + [ctypes.c_void_p] * 2\n"
+        "shapes = ((1, 1, 256, 84), (4, 1, 96, 84), (4, 1, 4096, 84), (4, 1, 256, 0), (4, 0, 256, 84))\n"
+        "print([sc(*s) for s in shapes], [sc(4, 128, 256, 84), sc(16, 1, 256, 84)],"
+        " [fn(a, 0, 0, a, a, a, a, a, a, a, None, b, m, 1, lf, k, pp, None) for m, b, lf, k in shapes],"
+        " fn(a, 0, 0, a, a, a, a, a, a, a, None, 1, 4, 0, 256, 84, pp, None),"
+        " fn(a, 0, 0, a, a, a, a, a, a, a, None, 1, 16, 1, 256, 84, pp, None), sep=';')\n"
+    )
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=60)
+    assert run.returncode == 0, run.stderr[-2000:]
+    refused, sizes, bad, no_frame, no_scratch = (json.loads(v) for v in run.stdout.strip().split(";"))
+    assert refused == [-1] * 5 and sizes[0] == 0 and sizes[1] > 0
+    assert all(e != 0 for e in bad + [no_frame, no_scratch])
 
 
 def test_k2_and_k10_launchers_refuse_what_they_do_not_take(libs):

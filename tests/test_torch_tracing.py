@@ -102,8 +102,8 @@ def test_cpu_paths_record_their_spans_nested_and_count_nothing(path):
 # one call's counts on the card: each kernel once, each blocking copy once
 CARD_COUNTS = {
     "enhance_mega": {"launch.fused_enhance_full": 1, "host_sync.prep.steering": 1},
-    "full_stack_fused": {"launch.fused_aec": 1, "launch.fused_kws": 1, "launch.fused_tdgsc": 1,
-                         "host_sync.prep.alignment": 1},
+    "full_stack_fused": {"launch.fused_aec": 1, "launch.fused_kws": 1, "launch.gsc_front": 1,
+                         "launch.fused_tdgsc": 1, "host_sync.prep.alignment": 1},
 }
 
 

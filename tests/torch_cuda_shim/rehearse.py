@@ -6,14 +6,15 @@ fiber per CUDA thread, the block's fibers taking turns at its block, warp
 and named barriers) into a shared library with the same C launcher as the nvcc build.
 Run as a script, it launches K5 (``flms``), K8 (``fdgsc``), K7 (``aec``),
 K4 and K2 (``enhance``), K9 (``sgsc``), K1 (``mvdr``), K6 (``kws``), K10
-(``srp``) or the MCRA lane kernel (``mcra``) from such libraries on CPU
+(``srp``), the MCRA lane kernel (``mcra``) or the TDGSC front end
+(``gsc_front``) from such libraries on CPU
 buffers and prints, as one JSON object, each case's gaps to the kernel's
 plain version:
 
     python tests/torch_cuda_shim/rehearse.py LIB_DIR [KERNEL ...]
 
 (every kernel's cases, or those of the kernels named, k5, k8, k7, k4, k2,
-k9, k1, k6, k10, mcra, or of the cases whose names start with a given
+k9, k1, k6, k10, mcra, front, or of the cases whose names start with a given
 prefix and a dash, such as k4-rank1-256).
 
 The launches run in this separate process so that a kernel whose barriers
@@ -120,8 +121,20 @@ CASES += [("k2", "rank1", 64, mics) for mics in (2, 3, 4, 8)] + [("k2", "ldl", 6
 # copies, a partial column tile)
 K10_ROWS, K10_BINS = 45, 5
 CASES += [("k10", "t360", mics, mics) for mics in (2, 3, 8, 12)] + [("k10", "t37", 3, 3)]
+# The TDGSC front end (csrc/gsc_front.cu; variant: with the postfilter's
+# powers, without, or the mics a strided view whose rows are not 16-byte
+# aligned; size = Lf): B=2 utterances of FRONT_FRAMES[Lf] frames, three
+# tiles or more with the last one partial (at Lf=2 its last notch chunk
+# too), at 4 mics (the cells' shape), 2, 3 and 8 (a tile of 1024) on a
+# linear array steered off broadside so that K > 84, 16 at Lf=256 and 4 at
+# Lf=2048 (the buffers in a global scratch), 3 at Lf=2048 (4096-point
+# transforms of 8 warps) and 3 at Lf=2.
+FRONT_FRAMES = {2: 1100, 128: 36, 256: 20, 2048: 3}
+CASES += [("front", "pf", 256, 4), ("front", "core", 256, 4), ("front", "strided", 256, 4)]
+CASES += [("front", "pf", 128, mics) for mics in (2, 3, 8)]
+CASES += [("front", "pf", 256, 16), ("front", "pf", 2048, 4), ("front", "core", 2048, 3), ("front", "pf", 2, 3)]
 LIBRARIES = {"k1": "mvdr", "k2": "enhance", "k5": "flms", "k8": "fdgsc", "k7": "aec", "k4": "enhance", "k9": "sgsc",
-             "mcra": "mcra", "k6": "kws", "k10": "srp"}
+             "mcra": "mcra", "k6": "kws", "k10": "srp", "front": "gsc_front"}
 
 
 def case_name(kernel: str, variant: str, size: int, mics: int) -> str:
@@ -512,6 +525,55 @@ def run_k9(lib, variant: str, Lf: int, seed: int) -> dict:
             "repairs": int((dec_want & cs.REPAIR).sum())}
 
 
+def run_front(lib, variant: str, Lf: int, mics: int, seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from distantspeech_tpu_torch.array.geometry import ArrayGeometry
+    from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig
+    from distantspeech_tpu_torch.ops import cuda_flms as cf
+
+    cfg = TdGscConfig(n_mics=mics, frame_len=Lf, postfilter=variant != "core")
+    T = FRONT_FRAMES[Lf]
+    S, F, C = T * Lf, Lf + 1, mics - 1
+    geom, look = ArrayGeometry.linear(mics, 0.032), (0.4, 0.0)
+    rng = np.random.default_rng(seed)
+    # a burst from the look direction on every mic (a DC offset under it, so
+    # that the notch works), and noise on each
+    env = np.repeat(rng.random((B, -(-S // 512))) < 0.5, 512, axis=1)[:, :S]
+    src = env * rng.standard_normal((B, S)) + 0.3
+    xs = np.stack([np.roll(src, m, axis=1) for m in range(mics)], axis=1) + 0.2 * rng.standard_normal((B, mics, S))
+    x = torch.as_tensor(xs, dtype=torch.float32)
+    if variant == "strided":  # rows S + 3 floats apart
+        wide = torch.full((B, mics, S + 3), float("nan"))
+        wide[..., :S] = x
+        x = wide[..., :S]
+    want = cf.gsc_front(x.contiguous(), geom, look, cfg)
+    taps = cf._alignment_taps(x, geom, look).contiguous()
+    K = taps.shape[-1]
+    bm, d = torch.full((B, C, S), float("nan")), torch.full((B, S), float("nan"))
+    yp = torch.full((B, T, F), float("nan"))
+    up = torch.full((B, C, T, F), float("nan")) if cfg.postfilter else None
+    lib.gsc_front_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.gsc_front_scratch_floats.restype = ctypes.c_longlong
+    n_scratch = lib.gsc_front_scratch_floats(mics, B, Lf, K)
+    scratch = torch.full((n_scratch,), float("nan")) if n_scratch > 0 else None
+    fn = lib.gsc_front_launch
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    params = cf._gsc_front_params(mics)
+    err = fn(x.data_ptr(), x.stride(0), x.stride(1), taps.data_ptr(), cf._tables(2 * Lf, torch.device("cpu")).data_ptr(),
+             cf._notch_table(torch.device("cpu")).data_ptr(), bm.data_ptr(), d.data_ptr(), yp.data_ptr(),
+             up.data_ptr() if up is not None else None, scratch.data_ptr() if scratch is not None else None,
+             B, mics, T, Lf, K, ctypes.addressof(params), None)
+    got = (bm, d, yp, up)
+    res = {"err": err, "K": K, "scratch_floats": n_scratch}
+    for name, g, w in zip(("bm", "d", "yp", "up"), got, want):
+        if w is not None:
+            res[name] = _gap(g, w)
+    return res
+
+
 def run_mcra(lib, return_sr: bool, F: int, seed: int) -> dict:
     import numpy as np
     import torch
@@ -571,6 +633,8 @@ def main(lib_dir: str, kernels=()) -> None:
             g = run_k6(lib, variant, size, seed=i)
         elif kernel == "mcra":
             g = run_mcra(lib, variant == "sr", size, seed=i)
+        elif kernel == "front":
+            g = run_front(lib, variant, size, mics, seed=i)
         else:
             g = run_k4(lib, mics, variant, size, seed=i)
         res[name] = g
