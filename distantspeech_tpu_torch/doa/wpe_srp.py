@@ -6,7 +6,8 @@ the subband analysis of each mic, the RLS-WPE recursion over all channels,
 the subband synthesis of every channel's prediction error, then
 ``doa.srp.srp_process`` on the dereverberated signals.  With
 ``backend="fused"`` the SRP spectrum is kernel K10; the MCRA track beside
-it is the MCRA lane kernel on the card.
+it is the MCRA lane kernel on the card.  A call opens the span
+``ds.wpe_srp_process`` around its four stage spans.
 """
 
 from __future__ import annotations
@@ -51,14 +52,18 @@ def wpe_dereverb_all(x: torch.Tensor, cfg: WpeConfig) -> torch.Tensor:
 
 def wpe_srp_process(
     x, geometry: ArrayGeometry, wpe_cfg: Optional[WpeConfig] = None, srp_cfg: SrpConfig = SrpConfig(),
-    phat: bool = True, backend: str = "scan", device=None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    phat: bool = True, backend: str = "scan", device=None, return_dereverb: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """x: [..., M, S] -> (angle_spectrum [..., T, Theta], p [..., T, F]) of
-    the dereverberated signals, on ``device``.  ``wpe_cfg`` defaults to
+    the dereverberated signals, on ``device``; with ``return_dereverb``
+    (the port's own keyword) the dereverberated signals [..., M, S] follow
+    as a third output.  ``wpe_cfg`` defaults to
     ``WpeConfig(n_channels=geometry.n_mics)``; ``backend`` is
     ``srp_process``'s ('scan' or 'fused')."""
-    x = torch.as_tensor(x, device=resolve_device(device))
-    cfg = wpe_cfg or WpeConfig(n_channels=geometry.n_mics)
-    y = wpe_dereverb_all(x, cfg)
-    with span("ds.wpe_srp.srp"):
-        return srp_process(y, geometry, srp_cfg, phat=phat, backend=backend, device=x.device)
+    with span("ds.wpe_srp_process"):
+        x = torch.as_tensor(x, device=resolve_device(device))
+        cfg = wpe_cfg or WpeConfig(n_channels=geometry.n_mics)
+        y = wpe_dereverb_all(x, cfg)
+        with span("ds.wpe_srp.srp"):
+            spec, p = srp_process(y, geometry, srp_cfg, phat=phat, backend=backend, device=x.device)
+    return (spec, p, y) if return_dereverb else (spec, p)

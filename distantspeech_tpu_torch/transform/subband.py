@@ -30,6 +30,7 @@ import torch
 from distantspeech_tpu_torch._device import resolve_device
 from distantspeech_tpu_torch.ops.dft import irdft, rdft
 from distantspeech_tpu_torch.ops.framing import frame_signal
+from distantspeech_tpu_torch.runtime.profiling import count
 from distantspeech_tpu_torch.transform.filterbank_design import nyquist_prototypes
 
 
@@ -63,6 +64,10 @@ class SubbandConfig:
 
 
 def _prototype(cfg: SubbandConfig, which: int, like: torch.Tensor) -> torch.Tensor:
+    """Prototype ``which`` (0 analysis, 1 synthesis) on ``like``'s device.  On
+    a card it is a blocking copy from the host (``host_sync.subband.prototype``)."""
+    if like.device.type == "cuda":
+        count("host_sync.subband.prototype")
     return torch.as_tensor(cfg.prototypes()[which], dtype=like.real.dtype, device=like.device)
 
 

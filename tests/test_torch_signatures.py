@@ -19,7 +19,8 @@ import distantspeech_tpu
 import distantspeech_tpu_torch.ops
 
 # port-only parameters, by (module, function)
-EXTRAS = {("beamform.enhance", "enhance_process"): ("t_chunk",)}
+EXTRAS = {("beamform.enhance", "enhance_process"): ("t_chunk",),
+          ("doa.wpe_srp", "wpe_srp_process"): ("return_dereverb",)}
 # functions that carry another name in the port
 RENAMES = {("array.steering", "steering_vector_jax"): "steering_vector_torch"}
 # parameters that carry another name in the port: collective_stats reads the

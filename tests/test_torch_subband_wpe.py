@@ -120,7 +120,8 @@ def _reverberant(C, S, seed):
     return np.stack([np.convolve(dry, r)[:S] for r in rirs]) * 0.3
 
 
-@pytest.mark.parametrize("kw", [{}, {"n_channels": 3, "filter_len": 3, "delay": 1}])
+@pytest.mark.parametrize("kw", [{}, {"n_channels": 3, "filter_len": 3, "delay": 1},
+                                {"n_channels": 3, "filter_len": 4, "delay": 3, "forgetting_factor": 0.9999}])
 def test_wpe_run_and_process(kw):
     cfg, jcfg = _wpe_cfgs(**kw)
     x = _reverberant(cfg.n_channels, 16 * 80, seed=8)
