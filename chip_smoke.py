@@ -107,7 +107,12 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    and the MCRA lane kernel, which is held to its plain version on that
    input; the summed spectrum's pick within 3 degrees of
    arccos(c / (0.032 fs)) or its mirror); timings; its bound with the
-   products on the tensor cores in 3xTF32, beside the FP32 bound;
+   products on the tensor cores in 3xTF32, beside the FP32 bound; then
+   WPE's kernel (``smoke_wpe``, ``csrc/wpe.cu``) at the ``reverb8.wpe_srp.b8``
+   cell's shape (B=8 x 8 mics x 4 s, 8 channels x 10 taps, 500 frames): one
+   launch, held to the float32 frame loop on the card (< ``WPE_GATE``), both
+   against the float64 recursion, timed beside its bound (1.35 ms by
+   operations) and the frame loop;
 14. the shapes beyond 8 mics and beyond the powers of two: K1 at 12, 16
    and 32 mics, K2 and K4 at 16, K5 (core and postfilter), K8 and K10 at 12
    and 16, each against its plain version at its gate size and tolerance,
@@ -136,12 +141,13 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    WpeConfig(n_channels=8), SrpConfig(), backend="fused")`` on B=8 x 8 mics
    x 4 s of phase 13's scene made reverberant (``reverb_scene``: RT60 0.4
    s, DRR 0 dB), with launch counts reset just before and read just after
-   (one launch each of K10 and the MCRA lane kernel; finite; the summed
-   spectrum's pick within 3 degrees of the true angle or its mirror), K10
-   held to its plain version on B7's own input (< 1e-4), the path and its
-   stages (subband analysis, WPE, synthesis, SRP) timed, with WPE's torch
-   calls a frame; the card's float32 WPE against the same code in float64
-   on the CPU at B=2 x 1 s (< 2e-2 of max|e|); then, once each through its
+   (one launch each of WPE's kernel, K10 and the MCRA lane kernel; finite;
+   the summed spectrum's pick within 3 degrees of the true angle or its
+   mirror), K10 held to its plain version on B7's own input (< 1e-4), the
+   path and its stages (subband analysis, WPE, synthesis, SRP) timed, with
+   the torch calls a frame of WPE's plain frame loop; the card's float32 WPE
+   (the kernel) against the frame loop in float64 on the CPU at B=2 x 1 s
+   (< 2e-2 of max|e|); then, once each through its
    entry point at the JAX benchmark's size (``SLICE_E_B``), finite and
    timed in audio-s/s: ``fixed_process`` SD and DS (B=8 x 4 mics; DS's
    output SNR above mic 0's on the white-noise scene), the offline
@@ -179,7 +185,10 @@ Phases; any failure exits nonzero, and nothing is printed as a result:
    ``inv_mode='rank1'`` K4; ``make_sharded_enhance_pallas`` the MCRA lanes
    and K1; ``make_sharded_tdgsc_fused`` the front end and K5), and with the scan runners
    (enhance, WPE, GSC, subband GSC) each equals its unsharded twin to the
-   bit or within ``SLICE_G2_BAR`` of max|twin|, printed; each pair timed in
+   bit or within ``SLICE_G2_BAR`` of max|twin|, printed (WPE's twin is
+   ``wpe_process`` with the frame loop the sharded runner steps, and the
+   runner is also held to ``wpe_process`` itself, WPE's kernel, within
+   ``SLICE_G2_WPE_BAR``); each pair timed in
    turns (twin, sharded, sharded, twin), ms/call and audio-s/s with the
    card line; ``runner_collectives()`` empty, ``measure_scaling()`` at
    1x1, ``graft_entry.dryrun_multichip(1)``;
@@ -419,6 +428,7 @@ def main() -> int:
     kernels += smoke_front(dev, card, B=128, seconds=4)
     kernels += smoke_k9(dev, card, B=128, seconds=4)
     kernels += smoke_k10(dev, card, B=8, seconds=4)
+    kernels += smoke_wpe(dev, card, B=8, seconds=4)
     kernels += smoke_wide(dev, card, seconds=4)
     smoke_gate_rel(dev, card)
     smoke_slice_e(dev, card, seconds=4)
@@ -1861,6 +1871,63 @@ def smoke_k10(dev, card: str, B: int, seconds: int) -> list:
              "library_ms": lib_ms}]
 
 
+# WPE's kernel against the float32 frame loop (tests/test_torch_reverb8.py's KERNEL_VS_LOOP): two float32
+# recursions in different orders of rounding, each ~4e-7 of max|e| from float64 over the cell's 500 frames
+WPE_GATE = 2e-6
+
+
+def smoke_wpe(dev, card: str, B: int, seconds: int) -> list:
+    """WPE's kernel (``ops.cuda_wpe.wpe_frames``, ``csrc/wpe.cu``) at the
+    ``reverb8.wpe_srp.b8`` cell's shape: B x 8 mics x 4 s of
+    ``reverb_scene`` (RT60 0.5 s) at its widths
+    (``portbench/configs/reverb8_wpe_srp.json``: 8 channels x 10 taps, 512
+    bands / hop 128, 500 frames): one launch a call; held to the float32
+    frame loop (``derev.wpe._recursion``) on the card (< ``WPE_GATE`` of
+    max|e|), both printed against the float64 recursion on the card; timed
+    (CUDA events) beside its bound (``portbench/roofline/wpe.py``'s count)
+    and one call of the frame loop."""
+    import torch
+
+    from distantspeech_tpu_torch.derev import wpe as dw
+    from distantspeech_tpu_torch.doa.wpe_srp import wpe_analysis
+    from distantspeech_tpu_torch.ops import cuda_wpe as cw
+    from distantspeech_tpu_torch.runtime.profiling import benchmark
+    from portbench.roofline import wpe as wpe_roofline
+
+    tag = f"[{card}]"
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "portbench", "configs", "reverb8_wpe_srp.json")) as f:
+        cell = json.load(f)
+    cfg = dw.WpeConfig(**{k: v for k, v in cell["wpe"].items() if k != "m"})
+    C, N = cfg.n_channels, cfg.filter_len
+    x = torch.as_tensor(reverb_scene(B, C, seconds * FS, seed=22, rt60=0.5), device=dev)
+    D = wpe_analysis(x, cfg)  # [T, B, F, C], the movedim view the kernel reads through its strides
+    T, F = D.shape[0], D.shape[-2]
+    reset_launches()
+    got = dw.wpe_run(cfg, D)
+    torch.cuda.synchronize()
+    check(launch_counts() == Counter({"wpe_run": 1}), f"wpe_run launched {dict(launch_counts())}")
+    want, plain_ms = timed_once(dw._recursion, cfg, D)
+    want64 = dw._recursion(cfg, D.to(torch.complex128))
+    real = torch.view_as_real
+    rel, mx = rel_err(real(got), real(want))
+    check(bool(torch.isfinite(real(got)).all()) and rel < WPE_GATE,
+          f"wpe_run kernel vs the float32 frame loop (B={B}, {C} ch x {N} taps, T={T}): rel {rel:.3e} (max abs "
+          f"{mx:.3e}) < {WPE_GATE:g}")
+    print(f"wpe_run against the float64 recursion: kernel rel {rel_err(real(got), real(want64))[0]:.3e}, float32 "
+          f"frame loop rel {rel_err(real(want), real(want64))[0]:.3e}", flush=True)
+    ms = benchmark(cw.wpe_frames, cfg, D)["per_call_s"] * 1e3
+    ops, nbytes = wpe_roofline.work({"x": x}, cell)
+    b, by = bound(nbytes, ops)
+    print(f"wpe_run (WPE's recursion, B={B} x {C} ch x {N} taps x {T} frames, {B * F} states): kernel {ms:.4f} "
+          f"ms/call ({1e3 * ms / T:.3f} us a frame), bound {b:.4f} ms by {by} ({nbytes} B; {ops:.4g} ops; "
+          f"{100 * b / ms:.1f}% of it), frame loop {plain_ms:.3f} ms {tag}", flush=True)
+    return [{"name": "wpe_run", "route": "cuda", "source": "distantspeech_tpu_torch/csrc/wpe.cu",
+             "replaces": "none (derev.wpe._recursion, the frame loop; the JAX package has no Pallas kernel for WPE)",
+             "launches": 1, "max_abs_err": rel, "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+             "library_ms": None}]
+
+
 def smoke_wide(dev, card: str, seconds: int) -> list:
     """Phase 14: the shapes beyond 8 mics and beyond the powers of two.
     Gates, each kernel against its plain version: K1 at 12, 16 and 32 mics
@@ -2422,8 +2489,9 @@ def smoke_slice_e(dev, card: str, seconds: int) -> None:
     spec, p = wpe_srp_process(x, geom8, cfg, scfg, backend="fused")
     torch.cuda.synchronize()
     counts = launch_counts()
-    check(counts["fused_srp_spectrum"] == 1 and counts["mcra_run"] == 1 and sum(counts.values()) == 2,
-          f"B7 wpe_srp_process fused launched K10 and the MCRA lane kernel once each: {counts}")
+    check(counts["wpe_run"] == 1 and counts["fused_srp_spectrum"] == 1 and counts["mcra_run"] == 1
+          and sum(counts.values()) == 3,
+          f"B7 wpe_srp_process fused launched WPE's kernel, K10 and the MCRA lane kernel once each: {counts}")
     T = S // scfg.stft.hop
     check(tuple(spec.shape) == (B, T, 360) and tuple(p.shape) == (B, T, scfg.stft.half_bin)
           and bool(torch.isfinite(spec).all()) and bool(torch.isfinite(p).all()),
@@ -2460,10 +2528,10 @@ def smoke_slice_e(dev, card: str, seconds: int) -> None:
     k10_ms = benchmark(cr.srp_spectrum, y2, G)["per_call_s"] * 1e3
     T_wpe = D.shape[0]
     calls = torch_calls(wpe_step, cfg, wpe_init(cfg, (B,), device=dev), D[0], D[0])
-    print(f"B7: K10 {k10_ms:.3f} ms ({100 * k10_ms / path_ms:.2f}% of the path); WPE {T_wpe} frames, {calls} torch "
-          f"calls a frame ({calls * T_wpe} in the frame loop) {tag}", flush=True)
+    print(f"B7: K10 {k10_ms:.3f} ms ({100 * k10_ms / path_ms:.2f}% of the path); WPE {T_wpe} frames in one kernel "
+          f"launch ({calls} torch calls a frame in the plain frame loop) {tag}", flush=True)
 
-    # ---- the card's float32 WPE against the same code in float64 on the CPU, B=2 x 1 s
+    # ---- the card's float32 WPE (the kernel) against the frame loop in float64 on the CPU, B=2 x 1 s
     x2 = x[:2, :, :FS]
     e32 = wpe_run(cfg, wpe_analysis(x2, cfg))
     e64 = wpe_run(cfg, wpe_analysis(x2.cpu().double(), cfg))
@@ -2883,6 +2951,22 @@ def smoke_slice_g1(dev, card: str) -> None:
 SLICE_G2_SIZES = {"mega": (64, 8, 4), "pallas": (64, 8, 4), "tdgsc": (128, 4, 4), "enhance": (8, 8, 1),
                   "wpe": (8, 2, 4), "gsc": (32, 4, 4), "subband_gsc": (32, 4, 4)}
 SLICE_G2_BAR = 1e-6  # a sharded runner against its unsharded twin, of max|twin|, where not equal to the bit
+# the sharded WPE runner (the frame loop, 2 channels x 2 taps) against ``wpe_process`` on the card (WPE's kernel):
+# two float32 recursions in different orders of rounding through the subband synthesis
+SLICE_G2_WPE_BAR = 1e-5
+
+
+def wpe_process_loop(x, cfg):
+    """``derev.wpe_process`` with WPE's plain frame loop (``derev.wpe._recursion``)
+    in place of the kernel: the sharded runner's unsharded twin."""
+    import torch
+
+    from distantspeech_tpu_torch.derev import wpe as dw
+    from distantspeech_tpu_torch.doa.wpe_srp import wpe_analysis
+    from distantspeech_tpu_torch.transform.subband import subband_synthesis
+
+    e = dw._recursion(cfg, wpe_analysis(x, cfg))  # [T, B, F, C]
+    return subband_synthesis(torch.movedim(e[..., 0], 0, -2), cfg.subband)
 
 
 def slice_g2_input(name: str, seed: int, dev, seconds=None):
@@ -2928,7 +3012,7 @@ def slice_g2_runners(mesh, dev) -> dict:
                   {"gsc_front": 1, "fused_tdgsc": 1}),
         "enhance": (make_sharded_enhance(mesh, geom8, look, cfg),
                     lambda x: enhance_process(x, geom8, look, cfg, device=dev), 34, {}),
-        "wpe": (make_sharded_wpe(mesh, wcfg), lambda x: wpe_process(x, wcfg, device=dev), 35, {}),
+        "wpe": (make_sharded_wpe(mesh, wcfg), lambda x: wpe_process_loop(x, wcfg), 35, {}),
         "gsc": (make_sharded_gsc(mesh, geom4, broadside, gcfg),
                 lambda x: gsc_process(x, geom4, broadside, gcfg, device=dev), 36, {}),
         "subband_gsc": (make_sharded_subband_gsc(mesh, geom4, ang, scfg),
@@ -2975,6 +3059,12 @@ def smoke_slice_g2(dev, card: str) -> None:
             rel, mx = rel_err(g, w)
             how = "equal to the bit" if torch.equal(g, w) else f"{rel:.3e} of max|twin| (max abs {mx:.3e})"
             check(rel <= SLICE_G2_BAR, f"{name} runner output {i} vs its unsharded twin: {how} <= {SLICE_G2_BAR:g}")
+        if name == "wpe":  # and against the path as users call it: WPE's kernel
+            from distantspeech_tpu_torch.derev import WpeConfig, wpe_process
+
+            rel, mx = rel_err(got, wpe_process(x, WpeConfig(n_channels=M), device=dev))
+            check(rel < SLICE_G2_WPE_BAR, f"wpe runner vs wpe_process (WPE's kernel): {rel:.3e} of max (max abs "
+                                          f"{mx:.3e}) < {SLICE_G2_WPE_BAR:g}")
         t_twin, t_run = [], []
         for _ in range(3 if name in ("mega", "pallas", "tdgsc", "wpe") else 1):  # the host-bound scans: one turn
             for fn, acc in ((twin, t_twin), (run, t_run), (run, t_run), (twin, t_twin)):

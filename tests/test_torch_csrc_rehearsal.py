@@ -1,8 +1,8 @@
 """K5 (csrc/flms.cu, core and postfilter), K8 (csrc/fdgsc.cu), K7
 (csrc/aec.cu), K4 (csrc/enhance.cu's mega kernel) and K2 (its lane kernel),
 K9 (csrc/sgsc.cu), K1 (csrc/mvdr.cu), K6 (csrc/kws.cu), K10 (csrc/srp.cu),
-the MCRA lane kernel (csrc/mcra.cu) and the TDGSC front end
-(csrc/gsc_front.cu) rehearsed on the CPU: each source compiled
+the MCRA lane kernel (csrc/mcra.cu), the TDGSC front end
+(csrc/gsc_front.cu) and WPE's recursion (csrc/wpe.cu) rehearsed on the CPU: each source compiled
 with g++ against the fiber shim in ``tests/torch_cuda_shim``,
 launched through its C launcher on CPU buffers and held to the kernel's
 plain version at 1e-4 of max|out| (bm likewise, p absolutely).  K5 and K8
@@ -43,9 +43,14 @@ more (the last partial) at the cells' 4 mics with and without the
 postfilter and from a strided view, at 2, 3 and 8 mics on a linear array
 (K > 84 at 8), at 16 mics and at Lf=2048 (its buffers in a global scratch),
 and at Lf=2048 and 2 with 3 mics; bm and d are held to 1e-5 of their max,
-the powers to 1e-4.  The launches run in child processes (one per kernel family, at
-once) with a time limit (``rehearse.py``); mismatched barriers abort the
-child (the shim finds a block whose threads all wait) and fail the test."""
+the powers to 1e-4.  WPE's recursion (csrc/wpe.cu) runs an AR spectrogram
+at K = 4 and 6 (several states a block, a ragged last block, 40 frames: not a
+multiple of its 16-frame prefetch chunk), at the cell's K = 80 over 37 frames
+and over 9 (fewer than delay + N) and at K = 160 (two tiles a thread), held
+to the frame loop at 1e-6 of max|e|.  The launches run in child processes
+(one per kernel family, at once) with a time limit (``rehearse.py``);
+mismatched barriers abort the child (the shim finds a block whose threads
+all wait) and fail the test."""
 
 import json
 import subprocess
@@ -63,7 +68,7 @@ TOL = 1e-4
 # this order, each with its own time limit
 GROUPS = (("k5", "k8", "mcra"), ("k7",), ("k4-rank1-256", "k4-ldl-256"), ("k4-rank1-512", "k4-rank1-1024"), ("k9",),
           ("k1",), ("k6", "k10"), ("k2-rank1-256-m28",), ("k2-rank1-64", "k2-ldl-64"),
-          ("k4-rank1-768", "k4-rank1-1280", "k4-rank1-2048"), ("k2-rank1-256-m12",), ("front",))
+          ("k4-rank1-768", "k4-rank1-1280", "k4-rank1-2048"), ("k2-rank1-256-m12",), ("front",), ("wpe",))
 
 
 @pytest.fixture(scope="module")
@@ -101,6 +106,16 @@ def test_kernel_source_matches_plain_version(gaps, case):
         assert ("up" in g) == ("-core-" not in case)
         assert (g["scratch_floats"] > 0) == (case in ("front-pf-256-m16", "front-pf-2048")), g["scratch_floats"]
         assert case.endswith(("-256", "-256-m16", "-128-m2", "-128-m3", "-2-m3", "-2048-m3", "-2048")) or g["K"] > 84
+        return
+    if case.startswith("wpe"):
+        # the same recursion in float32 in another order (P's Hermitian half
+        # in registers, the shares of P X summed by rows): ~1e-7 apart over
+        # these frames
+        assert g["out"] < 1e-6, f"{case}: e {g['out']:.3e} of max|e| from the frame loop"
+        assert g["moved"] > 0.05, f"{case}: e stayed at d ({g['moved']:.3e}), so the prediction did nothing"
+        if case.endswith(("-m2", "-m3")):
+            assert g["states_per_block"] > 1 and g["ragged"], g
+        assert g["tiles_per_thread"] == (2 if case.endswith("-m16") else 1), g
         return
     # K6 with Dn = 1 outputs the ANC's own error, whose float32 trajectory
     # through the 1 / P normalisation of the first frames' weak bins parts
@@ -250,3 +265,39 @@ def test_k2_and_k10_launchers_refuse_what_they_do_not_take(libs):
     assert run.returncode == 0, run.stderr[-2000:]
     k10_bad, k2_bad = (json.loads(v) for v in run.stdout.strip().split(";"))
     assert all(e != 0 for e in k10_bad + k2_bad)
+
+
+def test_the_wpe_launcher_refuses_what_it_does_not_take(libs):
+    """WPE's launcher refuses C N above 160 (16 channels x 11 taps), more than
+    32 channels (33 x 1), no channel, no tap, a delay of 0, delay + N above
+    200, and no frame, utterance or bin, before any launch, and its shape
+    query refuses the same widths; just inside (16 x 10, 32 x 5, delay + N =
+    200) it takes them, the cell's widths one state a block of 224 threads,
+    K = 4 sixteen states a block."""
+    code = (
+        "import ctypes\n"
+        f"lib = ctypes.CDLL({str(libs['wpe'])!r})\n"
+        "params = (ctypes.c_float * 8)()\n"
+        "buf = (ctypes.c_float * 8)()\n"
+        "a, pp = ctypes.addressof(buf), ctypes.addressof(params)\n"
+        "fn = lib.wpe_launch\n"
+        "fn.argtypes = [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 6"
+        " + [ctypes.c_void_p] * 2\n"
+        "sh = lib.wpe_shape\n"
+        "sh.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4\n"
+        "def shape(c, n, d):\n"
+        "    v = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()]\n"
+        "    ok = sh(c, n, d, *(ctypes.byref(x) for x in v))\n"
+        "    return [ok] + [x.value for x in v[:3]]\n"
+        "widths = ((16, 11, 3), (33, 1, 3), (0, 10, 3), (8, 0, 3), (8, 10, 0), (8, 10, 191))\n"
+        "inside = ((16, 10, 3), (32, 5, 3), (8, 10, 190), (8, 10, 3), (2, 2, 2))\n"
+        "print([fn(a, 1, 1, 1, 1, a, 4, 1, 3, c, n, d, pp, None) for c, n, d in widths],"
+        " [fn(a, 1, 1, 1, 1, a, t, b, f, 8, 10, 3, pp, None) for t, b, f in ((0, 1, 3), (4, 0, 3), (4, 1, 0))],"
+        " [shape(*w)[0] for w in widths], [shape(*w) for w in inside], sep=';')\n"
+    )
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=60)
+    assert run.returncode == 0, run.stderr[-2000:]
+    bad_widths, bad_sizes, refused, taken = (json.loads(v) for v in run.stdout.strip().split(";"))
+    assert all(e != 0 for e in bad_widths + bad_sizes) and refused == [-1] * 6
+    assert [t[0] for t in taken] == [0] * 5
+    assert taken[3][1:] == [224, 1, 1] and taken[4][1:3] == [8, 16] and taken[0][3] == 2

@@ -4,8 +4,10 @@ reference ``portbench/reference/reverb8_wpe_srp.py`` in float64 on the CPU,
 at 4 mics, 64 bands / hop 16, 3 taps and 1.2 s of ``scenes/reverb_look.py``
 (150 SRP frames: MCRA's presence leaves its 2 L = 130 frames of forced
 absence); the reference's Nyquist(M) prototypes against the program's; and
-the call's spans and counters.  The tests marked ``card`` hold the CUDA
-graph of the recursion to its frame loop and count one call's launches and
+the call's spans and counters; a CPU tensor takes the frame loop, and the
+kernel's wrapper refuses what lies outside its range before any launch.
+The tests marked ``card`` hold WPE's kernel (``csrc/wpe.cu``) to the float32
+frame loop and to the float64 recursion and count one call's launches and
 blocking copies on the card:
 ``python -m pytest --noconftest tests/test_torch_reverb8.py -m card``."""
 
@@ -115,8 +117,8 @@ def test_one_call_on_the_card_counts_each_launch_and_each_host_sync():
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
-    assert counters() == {"wpe.frames": x.shape[-1] // wcfg.hop, "launch.fused_srp_spectrum": 1,
-                          "launch.mcra_run": 1, "host_sync.subband.prototype": 2}
+    assert counters() == {"wpe.frames": x.shape[-1] // wcfg.hop, "launch.wpe_run": 1,
+                          "launch.fused_srp_spectrum": 1, "launch.mcra_run": 1, "host_sync.subband.prototype": 2}
     assert len(syncs) == 2, [f"{w.filename}:{w.lineno}" for w in syncs]
 
 
@@ -127,33 +129,90 @@ def _cell_wpe():
                      p_init=w["p_init"])
 
 
+def _gap(got, want) -> float:
+    """max |got - want| / max |want|, in float64."""
+    got, want = got.to(torch.complex128), want.to(torch.complex128)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+# The kernel against the float32 frame loop: both hold float64 to ~4e-7 of
+# max|e| over the cell's 500 frames (PERF.md §6), in different orders of
+# rounding (P's Hermitian half in registers, its shares of P X summed by rows,
+# against full-matrix torch products), so they may part by their sum; 2e-6
+# leaves that room twice over, where a wrong tap, frame or update parts them
+# by 1e-2 or more.
+KERNEL_VS_LOOP = 2e-6
+KERNEL_VS_FLOAT64 = 1e-5  # and at most 3x the frame loop's own gap to float64
+
+
 @pytest.mark.card
-def test_the_graphed_recursion_is_the_frame_loop_on_the_card():
-    """At the configuration's widths (8 ch x 10 taps, 512 bands / hop 128),
-    2 utterances of lengths that end inside a block, fill blocks exactly
-    and fall short of one: one graph serves them all."""
+def test_the_kernel_is_the_frame_loop_at_the_cells_widths():
+    """At the configuration's widths (8 ch x 10 taps, 512 bands / hop 128), 2
+    utterances of 117, 50, 41 and 500 frames (the cell's): the kernel's e
+    against the float32 frame loop and against the float64 recursion, one
+    launch a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     wcfg = _cell_wpe()
-    K = wpe.GRAPH_FRAMES
-    for seed, frames in ((1, 2 * K + 17), (2, K), (3, K - 9), (4, 3 * K)):  # the capture, then replays
-        x = _scene(CONFIG, seconds=(3 * K + 1) * wcfg.hop / 16000, seed=seed, device="cuda")
-        D = wpe_analysis(x[..., : frames * wcfg.hop], wcfg)
-        assert D.shape[0] == frames and torch.equal(wpe.wpe_run(wcfg, D), wpe._recursion(wcfg, D)), frames
-    assert len([k for k in wpe._GRAPHS if k[0] == wcfg]) == 1
+    for seed, frames in ((1, 117), (2, 50), (3, 41), (4, 500)):
+        x = _scene(CONFIG, seconds=frames * wcfg.hop / 16000, seed=seed, device="cuda")
+        D = wpe_analysis(x, wcfg)
+        reset_counters()
+        got = wpe.wpe_run(wcfg, D)
+        assert counters() == {"wpe.frames": frames, "launch.wpe_run": 1}
+        loop, f64 = wpe._recursion(wcfg, D), wpe._recursion(wcfg, D.to(torch.complex128))
+        assert D.shape[0] == frames and got.shape == D.shape and got.is_contiguous()
+        to_loop, to_f64, loop_f64 = _gap(got, loop), _gap(got, f64), _gap(loop, f64)
+        assert to_loop < KERNEL_VS_LOOP, (frames, to_loop)
+        assert to_f64 < KERNEL_VS_FLOAT64 and to_f64 <= 3 * loop_f64, (frames, to_f64, loop_f64)
 
 
 @pytest.mark.card
-def test_the_graph_steps_on_its_inputs_card_whichever_card_is_current():
+def test_the_kernel_steps_on_its_inputs_card_whichever_card_is_current():
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     wcfg = dataclasses.replace(_cell_wpe(), num_bands=64, hop=16)
-    x = _scene(CONFIG, seconds=0.25, seed=5, device="cuda:1")
-    D = wpe_analysis(x, wcfg)
+    D = wpe_analysis(_scene(CONFIG, seconds=0.25, seed=5, device="cuda:1"), wcfg)
     want = wpe._recursion(wcfg, D)
     with torch.cuda.device(0):
-        for seed in (5, 6):  # the capture, then a replay on another input
-            D = wpe_analysis(_scene(CONFIG, seconds=0.25, seed=seed, device="cuda:1"), wcfg)
-            got = wpe.wpe_run(wcfg, D)
-            assert got.device == D.device and torch.equal(got, wpe._recursion(wcfg, D))
-    assert torch.equal(wpe.wpe_run(wcfg, wpe_analysis(x, wcfg)), want)
+        got = wpe.wpe_run(wcfg, D)
+    assert got.device == D.device and _gap(got, want) < KERNEL_VS_LOOP
+
+
+def test_a_cpu_tensor_takes_the_frame_loop():
+    wcfg = dataclasses.replace(_cell_wpe(), num_bands=16, hop=4, n_channels=3, filter_len=2)
+    D = torch.randn((20, 2, wcfg.half_bin, 3), dtype=torch.complex64, generator=torch.Generator().manual_seed(7))
+    reset_counters()
+    got = wpe.wpe_run(wcfg, D)
+    assert counters() == {"wpe.frames": D.shape[0]} and torch.equal(got, wpe._recursion(wcfg, D))
+
+
+_OUTSIDE = {
+    "taps above 160": (dict(n_channels=16, filter_len=11), torch.complex64, None),
+    "channels above 32": (dict(n_channels=33, filter_len=1), torch.complex64, None),
+    "delay 0": (dict(delay=0), torch.complex64, None),
+    "delay + taps above 200": (dict(delay=191), torch.complex64, None),
+    "complex128": ({}, torch.complex128, None),
+    "float64": ({}, torch.float64, None),
+    "last dim not C": ({}, torch.complex64, 7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_OUTSIDE))
+def test_a_shape_outside_the_kernels_range_raises_before_any_launch(case, monkeypatch):
+    """The kernel's wrapper checks the configuration, the dtype and the shape
+    before the device, so a CPU tensor shows what a CUDA one meets: a
+    ``ValueError`` naming the range, the dtype or the shape, and no library
+    loaded."""
+    from distantspeech_tpu_torch.ops import _build, cuda_wpe
+
+    def no_load(name):
+        raise AssertionError(f"loaded {name}")
+
+    monkeypatch.setattr(_build, "load", no_load)
+    widths, dtype, last = _OUTSIDE[case]
+    wcfg = dataclasses.replace(_cell_wpe(), num_bands=8, hop=2, **widths)
+    C = last or wcfg.n_channels
+    D = torch.zeros((5, 2, wcfg.half_bin, C), dtype=dtype)
+    with pytest.raises(ValueError, match="range|n_channels|complex64|F = "):
+        cuda_wpe.wpe_frames(wcfg, D)

@@ -6,15 +6,15 @@ fiber per CUDA thread, the block's fibers taking turns at its block, warp
 and named barriers) into a shared library with the same C launcher as the nvcc build.
 Run as a script, it launches K5 (``flms``), K8 (``fdgsc``), K7 (``aec``),
 K4 and K2 (``enhance``), K9 (``sgsc``), K1 (``mvdr``), K6 (``kws``), K10
-(``srp``), the MCRA lane kernel (``mcra``) or the TDGSC front end
-(``gsc_front``) from such libraries on CPU
+(``srp``), the MCRA lane kernel (``mcra``), the TDGSC front end
+(``gsc_front``) or WPE's recursion (``wpe``) from such libraries on CPU
 buffers and prints, as one JSON object, each case's gaps to the kernel's
 plain version:
 
     python tests/torch_cuda_shim/rehearse.py LIB_DIR [KERNEL ...]
 
 (every kernel's cases, or those of the kernels named, k5, k8, k7, k4, k2,
-k9, k1, k6, k10, mcra, front, or of the cases whose names start with a given
+k9, k1, k6, k10, mcra, front, wpe, or of the cases whose names start with a given
 prefix and a dash, such as k4-rank1-256).
 
 The launches run in this separate process so that a kernel whose barriers
@@ -133,8 +133,19 @@ FRONT_FRAMES = {2: 1100, 128: 36, 256: 20, 2048: 3}
 CASES += [("front", "pf", 256, 4), ("front", "core", 256, 4), ("front", "strided", 256, 4)]
 CASES += [("front", "pf", 128, mics) for mics in (2, 3, 8)]
 CASES += [("front", "pf", 256, 16), ("front", "pf", 2048, 4), ("front", "core", 2048, 3), ("front", "pf", 2, 3)]
+# WPE's recursion (csrc/wpe.cu; variant = taps a channel, size = frames, mics =
+# channels) on an AR spectrogram whose channels each echo themselves `delay`
+# frames later, so that the prediction has something to find: K = 4 (2 x 2
+# taps, 16 states a block of 8-thread groups) and K = 6 (3 x 2, padded to 8)
+# over 3 utterances x 9 bins (27 states: a ragged last block), 40 frames (not
+# a multiple of the 16-frame prefetch chunk); the cell's K = 80 (8 x 10) over
+# 37 frames and over 9, fewer than delay + N; and K = 160 (16 x 10, two tiles a
+# thread), 1 utterance x 3 bins; and K = 20 (4 x 5: two 64-thread groups a
+# block, the error sums on a warp of their own)
+CASES += [("wpe", "n2", 40, 2), ("wpe", "n2", 40, 3), ("wpe", "n10", 37, 8), ("wpe", "n10", 9, 8),
+          ("wpe", "n10", 20, 16), ("wpe", "n5", 40, 4)]
 LIBRARIES = {"k1": "mvdr", "k2": "enhance", "k5": "flms", "k8": "fdgsc", "k7": "aec", "k4": "enhance", "k9": "sgsc",
-             "mcra": "mcra", "k6": "kws", "k10": "srp", "front": "gsc_front"}
+             "mcra": "mcra", "k6": "kws", "k10": "srp", "front": "gsc_front", "wpe": "wpe"}
 
 
 def case_name(kernel: str, variant: str, size: int, mics: int) -> str:
@@ -604,6 +615,42 @@ def run_mcra(lib, return_sr: bool, F: int, seed: int) -> dict:
     return res
 
 
+def run_wpe(lib, taps: int, frames: int, channels: int, seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    from distantspeech_tpu_torch.derev import wpe as dw
+    from distantspeech_tpu_torch.ops import cuda_wpe as cw
+
+    small = channels * taps <= 20
+    nb, bands, delay = (3, 16, 2) if small else (1, 4, 3)
+    cfg = dw.WpeConfig(num_bands=bands, hop=bands // 4, n_channels=channels, filter_len=taps, delay=delay,
+                       forgetting_factor=0.99)
+    F = cfg.half_bin
+    rng = np.random.default_rng(seed)
+    # [NB, C, T, F], as subband_analysis lays it out: innovations plus each
+    # channel's own echo `delay` frames back
+    y = rng.standard_normal((nb, channels, frames, F)) + 1j * rng.standard_normal((nb, channels, frames, F))
+    for t in range(delay, frames):
+        y[:, :, t] += 0.7 * y[:, :, t - delay]
+    D = torch.movedim(torch.movedim(torch.as_tensor(y.astype(np.complex64)), -3, -1), -3, 0)  # [T, NB, F, C], strided
+    e = torch.full((frames, nb, F, channels), complex(float("nan"), float("nan")), dtype=torch.complex64)
+    shape = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()]
+    lib.wpe_shape.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    ok = lib.wpe_shape(channels, taps, delay, *(ctypes.byref(v) for v in shape))
+    fn = lib.wpe_launch
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    params = cw._params(cfg)
+    err = fn(D.data_ptr(), *D.stride(), e.data_ptr(), frames, nb, F, channels, taps, delay, ctypes.addressof(params),
+             None)
+    want = dw._recursion(cfg, D)
+    group, states, tpt = (v.value for v in shape[:3])
+    return {"err": err or ok, "out": _gap(torch.view_as_real(e), torch.view_as_real(want)),
+            "moved": _gap(torch.view_as_real(want), torch.view_as_real(D)), "group": group,
+            "states_per_block": states, "tiles_per_thread": tpt, "ragged": (nb * F) % states != 0}
+
+
 def main(lib_dir: str, kernels=()) -> None:
     sys.path.insert(0, str(ROOT))
     picks = tuple(kernels or LIBRARIES)  # kernel names, or prefixes of case names
@@ -635,6 +682,8 @@ def main(lib_dir: str, kernels=()) -> None:
             g = run_mcra(lib, variant == "sr", size, seed=i)
         elif kernel == "front":
             g = run_front(lib, variant, size, mics, seed=i)
+        elif kernel == "wpe":
+            g = run_wpe(lib, int(variant[1:]), size, mics, seed=i)
         else:
             g = run_k4(lib, mics, variant, size, seed=i)
         res[name] = g
