@@ -204,7 +204,7 @@ from its code, at 4 cycles an operation and the card's maximum SM clock.
 
 from __future__ import annotations
 
-import ctypes
+import contextlib
 import functools
 import json
 import os
@@ -907,6 +907,22 @@ def k1_inputs(x, cfg):
     return Zt, gate.float(), p, lam
 
 
+@contextlib.contextmanager
+def variant_build(name: str, flags, label: str):
+    """Run the block with csrc/<name>.cu built with ``flags`` in place of
+    its own (into build/kernels/<name>-<label>.so) and loaded in place of
+    the shipped build."""
+    from distantspeech_tpu_torch.ops import _build
+
+    lib = _build.BUILD_DIR / f"{name}-{label}.so"
+    proc = _build.start_nvcc(name, lib, flags)
+    log, _ = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}-{label}:\n{log}")
+    with _build.swapped(name, lib):
+        yield
+
+
 def smoke_k1(dev, card: str, B: int, seconds: int) -> list:
     """Phase 7: kernel K1 at the gate size and on the ``pallas`` path."""
     import torch
@@ -916,7 +932,6 @@ def smoke_k1(dev, card: str, B: int, seconds: int) -> list:
     from distantspeech_tpu_torch.beamform.enhance import EnhanceConfig, enhance_process
     from distantspeech_tpu_torch.beamform.mvdr import MvdrConfig
     from distantspeech_tpu_torch.noise.mcra import mcra_run, mcra_run_plain
-    from distantspeech_tpu_torch.ops import _build
     from distantspeech_tpu_torch.ops import cuda_mvdr as cm
     from distantspeech_tpu_torch.runtime.profiling import benchmark
 
@@ -966,15 +981,10 @@ def smoke_k1(dev, card: str, B: int, seconds: int) -> list:
 
     # ---- why csrc/mvdr.cu is built with -fmad=false: the same source with
     # fused multiply-adds, benched config, against the same plain output
-    lib = _build.BUILD_DIR / "mvdr-fmad.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(_build.CSRC / "mvdr.cu")]
-    subprocess.run(cmd, capture_output=True, text=True, check=True, timeout=300)
     args = k1_args(bench_cfg, True, *k1_inputs(xg, bench_cfg))
-    built = _build._loaded.pop("mvdr", None)
-    _build._loaded["mvdr"] = ctypes.CDLL(str(lib))
-    got = cm.fused_mvdr_scan(*args)
-    torch.cuda.synchronize()
-    _build._loaded["mvdr"] = built if built is not None else _build.load("mvdr")
+    with variant_build("mvdr", (), "fmad"):
+        got = cm.fused_mvdr_scan(*args)
+        torch.cuda.synchronize()
     rel, _ = y_rel(got, cm.fused_mvdr_scan_plain(*args))
     print(f"fused_mvdr_scan built with fused multiply-adds, benched (B=8, 1 s): rel {rel:.3e} to the plain version", flush=True)
 
@@ -2279,7 +2289,6 @@ def smoke_gate_rel(dev, card: str) -> None:
     from distantspeech_tpu_torch.beamform.tdgsc import TdGscConfig, tdgsc_process
     from distantspeech_tpu_torch.doa.srp import srp_process
     from distantspeech_tpu_torch.kws.dual_mic import DualMicKwsConfig, kws_process
-    from distantspeech_tpu_torch.ops import _build
     from distantspeech_tpu_torch.ops import cuda_aec as ca
     from distantspeech_tpu_torch.ops import cuda_flms as cf
     from distantspeech_tpu_torch.runtime.full_stack import FullStackConfig, full_stack_process
@@ -2375,15 +2384,9 @@ def smoke_gate_rel(dev, card: str) -> None:
 
     # kws_fused with csrc/kws.cu built without fused multiply-adds (as K1's
     # and K9's sources are), against the same scan
-    lib = _build.BUILD_DIR / "kws-nofmad.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-fmad=false", "-I", str(_build.CSRC), "-o", str(lib),
-           str(_build.CSRC / "kws.cu")]
-    subprocess.run(cmd, capture_output=True, text=True, check=True, timeout=300)
-    built = _build._loaded.pop("kws", None)
-    _build._loaded["kws"] = ctypes.CDLL(str(lib))
-    got = cf.fused_kws(draws[2], DualMicKwsConfig())
-    torch.cuda.synchronize()
-    _build._loaded["kws"] = built if built is not None else _build.load("kws")
+    with variant_build("kws", ("-fmad=false",), "nofmad"):
+        got = cf.fused_kws(draws[2], DualMicKwsConfig())
+        torch.cuda.synchronize()
     ref = kws_process(draws[2], DualMicKwsConfig(), dev)
     print(f"gate_rel kws_fused with csrc/kws.cu built with -fmad=false: {rel_err(got, ref)[0]:.3e} (built as "
           f"shipped: {gaps['kws_fused']:.3e})", flush=True)

@@ -9,6 +9,10 @@ every source at once, one ``nvcc`` process per source, all started
 together.  A failed compile raises with nvcc's output.  ptxas's register and
 spill report for each library is kept beside it as ``<name>-<hash>.log``.
 
+The C interface of every library is written here once, in ``SIGNATURES``:
+``load`` types a library's exported functions from it when it first loads
+the library, and ``swapped`` loads another build of a source (an edited
+copy, other flags, the CPU rehearsal's g++ build) in its place for a block.
 Every library exports ``<name>_error_string(int)``; ``check_launch`` raises
 with it when a launcher returns a CUDA error, and ``check_tensors`` holds
 the wrappers' arguments to what the kernels take.
@@ -16,6 +20,7 @@ the wrappers' arguments to what the kernels take.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -45,6 +50,28 @@ NVCC_FLAGS = (
 # would buy it nothing.
 SOURCE_FLAGS = {"mvdr": ("-fmad=false",), "sgsc": ("-fmad=false",), "mcra": ("-fmad=false",)}
 
+# csrc/<name>.cu -> {exported function: "result(arguments)"}: p a pointer,
+# i an int (cudaError_t too), q a long long, f a float, s a C string, I an
+# int*, Q a long long*.  Each launcher takes its params struct (K10's has
+# none) and the stream last; each *_scratch_floats says how many floats of
+# global scratch its launch needs, -1 for a shape the launcher does not take.
+SIGNATURES = {name: {**fns, f"{name}_error_string": "s(i)"} for name, fns in {
+    "aec": {"fused_aec_launch": "i(pppppiiiiipp)", "fused_aec_layout": "i(iiiQ)"},  # K7
+    "enhance": {"fused_enhance_scratch_floats": "q(iii)", "fused_enhance_launch": "i(pppppiiiipp)",  # K2
+                "fused_enhance_full_scratch_floats": "q(ii)", "fused_enhance_full_launch": "i(pppppiiiifpp)"},  # K4
+    "fdgsc": {"fused_fdgsc_scratch_floats": "q(iii)", "fused_fdgsc_launch": "i(pppppppppiiiipp)"},  # K8
+    "flms": {"fused_tdgsc_scratch_floats": "q(iiii)", "fused_tdgsc_launch": "i(ppppppppiiiipp)"},  # K5
+    "gsc_front": {"gsc_front_scratch_floats": "q(iiii)", "gsc_front_launch": "i(piippppppppiiiiipp)"},
+    "kws": {"fused_kws_launch": "i(pppppiiiipp)"},  # K6
+    "mcra": {"mcra_launch": "i(pppppiiipp)"},
+    "mvdr": {"fused_mvdr_scan_launch": "i(ppppppiiiipp)"},  # K1
+    "sgsc": {"fused_sgsc_launch": "i(pppppppiiipp)"},  # K9
+    "srp": {"fused_srp_launch": "i(pppiiiip)"},  # K10
+    "wpe": {"wpe_shape": "i(iiiIIIQ)", "wpe_launch": "i(pqqqqpiiiiiipp)"},
+}.items()}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong, "f": ctypes.c_float,
+           "s": ctypes.c_char_p, "I": ctypes.POINTER(ctypes.c_int), "Q": ctypes.POINTER(ctypes.c_longlong)}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -67,6 +94,15 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def start_nvcc(name: str, out: Path, flags=None, csrc: Path = CSRC) -> subprocess.Popen:
+    """Start nvcc on ``<csrc>/<name>.cu`` into the library ``out``, with
+    ``flags`` in place of the source's own (``SOURCE_FLAGS``); its output and
+    errors in one text pipe."""
+    flags = SOURCE_FLAGS.get(name, ()) if flags is None else flags
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-I", str(csrc), "-o", str(out), str(Path(csrc) / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def build() -> Dict[str, Path]:
     """Compile every ``csrc/*.cu`` not yet built for the current sources;
     return {name: library path}."""
@@ -76,12 +112,10 @@ def build() -> Dict[str, Path]:
     todo = {name: lib for name, lib in out.items() if not lib.exists()}
     if not todo:
         return out
-    nvcc = _nvcc()
     procs = {}
     for name, lib in todo.items():
         tmp = lib.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        procs[name] = (tmp, start_nvcc(name, tmp))
     failed = []
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
@@ -96,19 +130,44 @@ def build() -> Dict[str, Path]:
     return out
 
 
+def open_library(name: str, path) -> ctypes.CDLL:
+    """The library at ``path``, a build of ``csrc/<name>.cu``, its exported
+    functions typed from ``SIGNATURES[name]``."""
+    lib = ctypes.CDLL(str(path))
+    for fn, sig in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.restype, f.argtypes = _CTYPES[sig[0]], [_CTYPES[c] for c in sig[2:-1]]
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, building it if needed."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build()[name]))
+        _loaded[name] = open_library(name, build()[name])
     return _loaded[name]
+
+
+@contextlib.contextmanager
+def swapped(name: str, path):
+    """Run the block with the library at ``path`` (another build of
+    ``csrc/<name>.cu``) loaded in place of ``load(name)``'s; the previous one
+    is back on exit, whatever the block raised.  Yields the library."""
+    before = _loaded.get(name)
+    _loaded[name] = lib = open_library(name, path)
+    try:
+        yield lib
+    finally:
+        if before is None:
+            _loaded.pop(name, None)
+        else:
+            _loaded[name] = before
 
 
 def check_launch(name: str, err: int, what: str) -> None:
     """Raise if a launcher of library ``name`` returned a CUDA error."""
     if err != 0:
-        fn = getattr(load(name), f"{name}_error_string")
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
-        raise RuntimeError(f"{what} launch failed: {fn(err).decode()} ({err})")
+        msg = getattr(load(name), f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
 
 
 def check_tensors(what: str, *tensors: torch.Tensor) -> None:

@@ -239,38 +239,25 @@ def _tables(n_fft: int, device) -> torch.Tensor:
     return torch.as_tensor(np.concatenate([_twiddles(n_fft), win, apow]), dtype=torch.float32, device=device)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("aec")
-    if not getattr(lib, "_signatures_set", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_aec_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p]
-        lib.fused_aec_launch.restype = i
-        lib.fused_aec_layout.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_longlong)]
-        lib.fused_aec_layout.restype = i
-        lib._signatures_set = True
-    return lib
-
-
 def launch_layout(cfg, M: int):
     """(mics a block holds, its dynamic shared memory in bytes) of the
     kernel's launch for M mics; 0 mics if not even one fits."""
     smem = ctypes.c_longlong()
-    per_block = _library().fused_aec_layout(cfg.num_block, cfg.block_len, M, ctypes.byref(smem))
+    per_block = _build.load("aec").fused_aec_layout(cfg.num_block, cfg.block_len, M, ctypes.byref(smem))
     return per_block, smem.value
 
 
-def _launch(farp, xp, cfg, out, upd, stream) -> None:
-    """Launch the kernel on farp [B, S'], xp [B, M, S'] into out [B, M, S']
-    (and, where given, the decisions upd [B, M, T] as float32 0 / 1)."""
+def _launch(farp, xp, cfg, out, upd, stream) -> int:
+    """``aec_frames``' launch into out (and the decisions upd as float32
+    0 / 1, where not None); its error code."""
     B, M, S = xp.shape
     hop = cfg.block_len
     params = _aec_params(cfg)
-    err = _library().fused_aec_launch(
+    return _build.load("aec").fused_aec_launch(
         farp.data_ptr(), xp.data_ptr(), _tables(cfg.n_fft, xp.device).data_ptr(), out.data_ptr(),
         upd.data_ptr() if upd is not None else None, cfg.num_block, B, M, S // hop, hop,
         ctypes.addressof(params), stream,
     )
-    _build.check_launch("aec", err, "fused_aec")
 
 
 def aec_frames(farp: torch.Tensor, xp: torch.Tensor, cfg, decisions: bool = False):
@@ -288,7 +275,8 @@ def aec_frames(farp: torch.Tensor, xp: torch.Tensor, cfg, decisions: bool = Fals
             raise ValueError("fused_aec: farp must be [B, S'] and xp [B, M, S'] with S' whole blocks")
         out = torch.empty_like(xp)
         upd = torch.empty((B, M, S // cfg.block_len), dtype=torch.float32, device=xp.device) if decisions else None
-        _launch(farp, xp, cfg, out, upd, torch.cuda.current_stream(xp.device).cuda_stream)
+        err = _launch(farp, xp, cfg, out, upd, torch.cuda.current_stream(xp.device).cuda_stream)
+        _build.check_launch("aec", err, "fused_aec")
         count("launch.fused_aec")
     return (out, upd > 0.5) if decisions else out
 

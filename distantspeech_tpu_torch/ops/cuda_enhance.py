@@ -270,20 +270,15 @@ def _lane_params(cfg, M: int, t_chunk: int, inv_mode: str) -> _LaneParams:
     )
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("enhance")
-    if not getattr(lib, "_signatures_set", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_enhance_launch.argtypes = [p, p, p, p, p, i, i, i, i, p, p]
-        lib.fused_enhance_launch.restype = i
-        lib.fused_enhance_scratch_floats.argtypes = [i, i, i]
-        lib.fused_enhance_scratch_floats.restype = ctypes.c_longlong
-        lib.fused_enhance_full_launch.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, p, p]
-        lib.fused_enhance_full_launch.restype = i
-        lib.fused_enhance_full_scratch_floats.argtypes = [i, i]
-        lib.fused_enhance_full_scratch_floats.restype = ctypes.c_longlong
-        lib._signatures_set = True
-    return lib
+def _lanes_launch(Z, Sf, steer_planes, cfg, t_chunk: int, inv_mode: str, Y, scratch, stream) -> int:
+    """``enhance_lanes``' launch into Y with the scratch (or None) that
+    ``fused_enhance_scratch_floats`` asks; its error code."""
+    T, M, _, B, F = Z.shape
+    params = _lane_params(cfg, M, t_chunk, inv_mode)
+    return _build.load("enhance").fused_enhance_launch(
+        Z.data_ptr(), Sf.data_ptr(), steer_planes.data_ptr(), Y.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, M, B, F, T, ctypes.addressof(params), stream,
+    )
 
 
 def enhance_lanes(Z, Sf, steer_planes, cfg, t_chunk: int, inv_mode: str = "ldl") -> torch.Tensor:
@@ -300,16 +295,11 @@ def enhance_lanes(Z, Sf, steer_planes, cfg, t_chunk: int, inv_mode: str = "ldl")
         raise ValueError(f"fused_enhance: the kernel takes M >= 2 mics, got M={M}")
     if Sf.shape != (T, B, F) or steer_planes.shape != (M, 2, F):
         raise ValueError("fused_enhance: Sf must be [T, B, F] and steer_planes [M, 2, F]")
-    lib = _library()
     Y = torch.empty((T, 2, B, F), dtype=torch.float32, device=Z.device)
-    params = _lane_params(cfg, M, t_chunk, inv_mode)
-    n_scratch = lib.fused_enhance_scratch_floats(M, B, F)  # lane states above 8 mics
+    n_scratch = _build.load("enhance").fused_enhance_scratch_floats(M, B, F)  # lane states above 8 mics
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=Z.device) if n_scratch > 0 else None
-    err = lib.fused_enhance_launch(
-        Z.data_ptr(), Sf.data_ptr(), steer_planes.data_ptr(), Y.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None, M, B, F, T,
-        ctypes.addressof(params), torch.cuda.current_stream(Z.device).cuda_stream,
-    )
+    err = _lanes_launch(Z, Sf, steer_planes, cfg, t_chunk, inv_mode, Y, scratch,
+                        torch.cuda.current_stream(Z.device).cuda_stream)
     _build.check_launch("enhance", err, "fused_enhance")
     count("launch.fused_enhance")
     return Y
@@ -337,6 +327,19 @@ def _dft_tables(stft, device) -> torch.Tensor:
     return torch.as_tensor(np.stack([stft.window, c, s]), dtype=torch.float32, device=device)
 
 
+def _full_launch(x, steer_planes, cfg, t_chunk: int, inv_mode: str, y, scratch, stream) -> int:
+    """``fused_enhance_full``'s launch into y with B times the scratch (or
+    None) that ``fused_enhance_full_scratch_floats`` asks; its error code."""
+    B, M, S = x.shape
+    stft = cfg.stft
+    params = _lane_params(cfg, M, t_chunk, inv_mode)
+    return _build.load("enhance").fused_enhance_full_launch(
+        x.data_ptr(), _dft_tables(stft, x.device).data_ptr(), steer_planes.data_ptr(), y.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, M, B, stft.n_fft, S // stft.hop,
+        stft.synthesis_gain, ctypes.addressof(params), stream,
+    )
+
+
 def fused_enhance_full(x: torch.Tensor, steer, cfg, t_chunk: int = None, inv_mode: str = "ldl") -> torch.Tensor:
     """The whole flagship pipeline in one kernel: x [B, M, S] -> y [B, T*hop].
     steer: [F, M] complex; any M >= 2 and any n_fft that is a multiple of
@@ -348,22 +351,15 @@ def fused_enhance_full(x: torch.Tensor, steer, cfg, t_chunk: int = None, inv_mod
         x = x.contiguous()
         _build.check_tensors("fused_enhance_full", x)
         B, M, S = x.shape
-        stft = cfg.stft
-        lib = _library()
-        if lib.fused_enhance_full_scratch_floats(M, stft.n_fft) < 0:
+        n_fft = cfg.stft.n_fft
+        # floats of scratch a block for the lane states that fit no block; -1: a shape it does not take
+        n_scratch = _build.load("enhance").fused_enhance_full_scratch_floats(M, n_fft)
+        if n_scratch < 0:
             raise ValueError(f"fused_enhance_full: the kernel takes M >= 2 and n_fft a multiple of 256, "
-                             f"got M={M}, n_fft={stft.n_fft}; backend='fused' runs any")
-        T = S // stft.hop
+                             f"got M={M}, n_fft={n_fft}; backend='fused' runs any")
         y = torch.empty((B, S), dtype=torch.float32, device=x.device)
-        tabs = _dft_tables(stft, x.device)
-        params = _lane_params(cfg, M, tc, inv_mode)
-        n_scratch = lib.fused_enhance_full_scratch_floats(M, stft.n_fft)  # lane states that fit no block
         scratch = torch.empty((B * n_scratch,), dtype=torch.float32, device=x.device) if n_scratch > 0 else None
-        err = lib.fused_enhance_full_launch(
-            x.data_ptr(), tabs.data_ptr(), planes.data_ptr(), y.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None, M, B, stft.n_fft, T,
-            stft.synthesis_gain, ctypes.addressof(params), torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        err = _full_launch(x, planes, cfg, tc, inv_mode, y, scratch, torch.cuda.current_stream(x.device).cuda_stream)
         _build.check_launch("enhance", err, "fused_enhance_full")
         count("launch.fused_enhance_full")
     return y

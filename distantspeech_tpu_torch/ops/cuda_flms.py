@@ -345,43 +345,29 @@ def _tables(n_fft: int, device) -> torch.Tensor:
     return torch.as_tensor(np.concatenate([_twiddles(n_fft), win]), dtype=torch.float32, device=device)
 
 
-# csrc/<name>.cu -> its launcher and argument types (p: pointer, i: int)
-_LAUNCHERS = {
-    "flms": ("fused_tdgsc_launch", "ppppppppiiiipp"),  # K5
-    "kws": ("fused_kws_launch", "pppppiiiipp"),  # K6
-    "fdgsc": ("fused_fdgsc_launch", "pppppppppiiiipp"),  # K8
-    "gsc_front": ("gsc_front_launch", "piippppppppiiiiipp"),  # the TDGSC front end
-}
-# csrc/<name>.cu -> the function that says how much global scratch a launch
-# needs (floats, -1 for a shape it does not take), and its int arguments
-_SCRATCH = {"flms": ("fused_tdgsc_scratch_floats", 4), "fdgsc": ("fused_fdgsc_scratch_floats", 3),
-            "gsc_front": ("gsc_front_scratch_floats", 4)}
-
-
-def _library(name: str = "flms") -> ctypes.CDLL:
-    lib = _build.load(name)
-    if not getattr(lib, "_signatures_set", False):
-        fn_name, sig = _LAUNCHERS[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int for c in sig]
-        fn.restype = ctypes.c_int
-        if name in _SCRATCH:
-            sc_name, n_int = _SCRATCH[name]
-            sc = getattr(lib, sc_name)
-            sc.argtypes, sc.restype = [ctypes.c_int] * n_int, ctypes.c_longlong
-        lib._signatures_set = True
-    return lib
-
-
 def _scratch(name: str, device, *shape) -> torch.Tensor:
-    """The global scratch a launch of csrc/<name>.cu needs at this shape
-    (None where its buffers fit in shared memory); raises for a shape the
-    launcher does not take."""
-    lib = _library(name)
-    n = getattr(lib, _SCRATCH[name][0])(*shape)
+    """The global scratch a launch of csrc/<name>.cu needs at this shape, as
+    its ``*_scratch_floats`` in ``_build.SIGNATURES`` says (None where its
+    buffers fit in shared memory); raises for a shape the launcher does not
+    take."""
+    fn = next(f for f in _build.SIGNATURES[name] if f.endswith("_scratch_floats"))
+    n = getattr(_build.load(name), fn)(*shape)
     if n < 0:
-        raise ValueError(f"{_LAUNCHERS[name][0]}: the kernel does not take the shape {shape}")
+        raise ValueError(f"{fn.replace('_scratch_floats', '_launch')}: the kernel does not take the shape {shape}")
     return torch.empty((n,), dtype=torch.float32, device=device) if n > 0 else None
+
+
+def _tdgsc_launch(bm, d, yp, up, cfg, out, p, scratch, stream) -> int:
+    """``tdgsc_frames``' launch into out and p (up and scratch may be None);
+    its error code."""
+    B, C, S = bm.shape
+    Lf = cfg.frame_len
+    params = _tdgsc_params(cfg)
+    return _build.load("flms").fused_tdgsc_launch(
+        bm.data_ptr(), d.data_ptr(), yp.data_ptr(), up.data_ptr() if up is not None else None,
+        _tables(2 * Lf, bm.device).data_ptr(), out.data_ptr(), p.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, C, B, S // Lf, Lf, ctypes.addressof(params), stream,
+    )
 
 
 def tdgsc_frames(bm: torch.Tensor, d: torch.Tensor, yp: torch.Tensor, up, cfg):
@@ -404,14 +390,8 @@ def tdgsc_frames(bm: torch.Tensor, d: torch.Tensor, yp: torch.Tensor, up, cfg):
             raise ValueError("fused_tdgsc: up is given exactly when cfg.postfilter is set")
         out = torch.empty((B, S), dtype=torch.float32, device=bm.device)
         p = torch.empty((B, T, F), dtype=torch.float32, device=bm.device)
-        params = _tdgsc_params(cfg)
         scratch = _scratch("flms", bm.device, C, B, Lf, int(up is not None))
-        err = _library("flms").fused_tdgsc_launch(
-            bm.data_ptr(), d.data_ptr(), yp.data_ptr(), up.data_ptr() if up is not None else None,
-            _tables(2 * Lf, bm.device).data_ptr(), out.data_ptr(), p.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None, C, B, T, Lf,
-            ctypes.addressof(params), torch.cuda.current_stream(bm.device).cuda_stream,
-        )
+        err = _tdgsc_launch(bm, d, yp, up, cfg, out, p, scratch, torch.cuda.current_stream(bm.device).cuda_stream)
         _build.check_launch("flms", err, "fused_tdgsc")
         count("launch.fused_tdgsc")
     return out, p
@@ -489,6 +469,21 @@ def gsc_front(x: torch.Tensor, geometry, angle_rad, cfg):
     return gsc_front_kernel(x, _alignment_taps(x, geometry, angle_rad), cfg)
 
 
+def _gsc_front_launch(x, taps, cfg, bm, d, yp, up, scratch, stream) -> int:
+    """``gsc_front_kernel``'s launch into bm, d, yp and up (up and scratch
+    may be None); its error code."""
+    B, M, S = x.shape
+    Lf = cfg.frame_len
+    dev = x.device
+    params = _gsc_front_params(M)
+    return _build.load("gsc_front").gsc_front_launch(
+        x.data_ptr(), x.stride(0), x.stride(1), taps.data_ptr(), _tables(2 * Lf, dev).data_ptr(),
+        _notch_table(dev).data_ptr(), bm.data_ptr(), d.data_ptr(), yp.data_ptr(),
+        up.data_ptr() if up is not None else None, scratch.data_ptr() if scratch is not None else None,
+        B, M, S // Lf, Lf, taps.shape[-1], ctypes.addressof(params), stream,
+    )
+
+
 def gsc_front_kernel(x: torch.Tensor, taps: torch.Tensor, cfg):
     """``gsc_front``'s launch on the checked mics x [B, M, S'] and the
     alignment taps [M, K], both on the card."""
@@ -502,13 +497,7 @@ def gsc_front_kernel(x: torch.Tensor, taps: torch.Tensor, cfg):
     yp = torch.empty((B, T, F), dtype=torch.float32, device=dev)
     up = torch.empty((B, M - 1, T, F), dtype=torch.float32, device=dev) if cfg.postfilter else None
     scratch = _scratch("gsc_front", dev, M, B, Lf, K)
-    params = _gsc_front_params(M)
-    err = _library("gsc_front").gsc_front_launch(
-        x.data_ptr(), x.stride(0), x.stride(1), taps.data_ptr(), _tables(2 * Lf, dev).data_ptr(),
-        _notch_table(dev).data_ptr(), bm.data_ptr(), d.data_ptr(), yp.data_ptr(),
-        up.data_ptr() if up is not None else None, scratch.data_ptr() if scratch is not None else None,
-        B, M, T, Lf, K, ctypes.addressof(params), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    err = _gsc_front_launch(x, taps, cfg, bm, d, yp, up, scratch, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("gsc_front", err, "gsc_front")
     count("launch.gsc_front")
     return bm, d, yp, up
@@ -618,18 +607,16 @@ class _KwsParams(ctypes.Structure):
     _fields_ = [("alpha", ctypes.c_float), ("one_m_alpha", ctypes.c_float), ("mu2", ctypes.c_float)]
 
 
-def _kws_launch(x0, d, cfg, fifo, out, stream) -> None:
-    """Launch K6 on x0, d [B, S'] with the zeroed FIFO scratch fifo
-    [B, Dn, Lf] into out [B, S']."""
+def _kws_launch(x0, d, cfg, fifo, out, stream) -> int:
+    """``kws_frames``' launch with the zeroed FIFO into out; its error code."""
     fcfg = cfg.flms
     B, S = x0.shape
     Lf = fcfg.filter_len
     params = _KwsParams(alpha=fcfg.alpha, one_m_alpha=1.0 - fcfg.alpha, mu2=2.0 * fcfg.mu)
-    err = _library("kws").fused_kws_launch(
+    return _build.load("kws").fused_kws_launch(
         x0.data_ptr(), d.data_ptr(), _tables(fcfg.n_fft, x0.device).data_ptr(), fifo.data_ptr(), out.data_ptr(),
         B, S // Lf, Lf, cfg.delay_frames_n, ctypes.addressof(params), stream,
     )
-    _build.check_launch("kws", err, "fused_kws")
 
 
 def kws_frames(x0: torch.Tensor, d: torch.Tensor, cfg) -> torch.Tensor:
@@ -647,7 +634,8 @@ def kws_frames(x0: torch.Tensor, d: torch.Tensor, cfg) -> torch.Tensor:
             raise ValueError("fused_kws: x0 and d must be [B, S'] with S' whole frames")
         fifo = torch.zeros((B, cfg.delay_frames_n, Lf), dtype=torch.float32, device=x0.device)
         out = torch.empty_like(x0)
-        _kws_launch(x0, d, cfg, fifo, out, torch.cuda.current_stream(x0.device).cuda_stream)
+        err = _kws_launch(x0, d, cfg, fifo, out, torch.cuda.current_stream(x0.device).cuda_stream)
+        _build.check_launch("kws", err, "fused_kws")
         count("launch.fused_kws")
     return out
 
@@ -822,17 +810,17 @@ def _fdgsc_tables(n_fft: int, device) -> torch.Tensor:
 
 
 
-def _fdgsc_launch(fbf, dbm, daic, yp, cfg, out, p, bm, stream) -> None:
+def _fdgsc_launch(fbf, dbm, daic, yp, cfg, out, p, bm, scratch, stream) -> int:
+    """``fdgsc_frames``' launch into out, p and bm (scratch may be None); its
+    error code."""
     B, M, S = dbm.shape
     Lf = cfg.frame_len
     params = _fdgsc_params(cfg)
-    scratch = _scratch("fdgsc", dbm.device, M, B, Lf)
-    err = _library("fdgsc").fused_fdgsc_launch(
+    return _build.load("fdgsc").fused_fdgsc_launch(
         fbf.data_ptr(), dbm.data_ptr(), daic.data_ptr(), yp.data_ptr(), _fdgsc_tables(2 * Lf, dbm.device).data_ptr(),
         out.data_ptr(), p.data_ptr(), bm.data_ptr(), scratch.data_ptr() if scratch is not None else None, M, B,
         S // Lf, Lf, ctypes.addressof(params), stream,
     )
-    _build.check_launch("fdgsc", err, "fused_fdgsc")
 
 
 def fdgsc_frames(fbf, dbm, daic, yp, cfg):
@@ -852,7 +840,10 @@ def fdgsc_frames(fbf, dbm, daic, yp, cfg):
     out = torch.empty_like(fbf)
     p = torch.empty((B, T, F), dtype=torch.float32, device=dbm.device)
     bm = torch.empty_like(dbm)
-    _fdgsc_launch(fbf, dbm, daic, yp, cfg, out, p, bm, torch.cuda.current_stream(dbm.device).cuda_stream)
+    scratch = _scratch("fdgsc", dbm.device, M, B, Lf)
+    err = _fdgsc_launch(fbf, dbm, daic, yp, cfg, out, p, bm, scratch,
+                        torch.cuda.current_stream(dbm.device).cuda_stream)
+    _build.check_launch("fdgsc", err, "fused_fdgsc")
     count("launch.fused_fdgsc")
     return out, p, bm
 

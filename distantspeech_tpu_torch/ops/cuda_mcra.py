@@ -23,14 +23,15 @@ from distantspeech_tpu_torch.ops.cuda_mvdr import _mcra_params
 from distantspeech_tpu_torch.runtime.profiling import count
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("mcra")
-    if not getattr(lib, "_signatures_set", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mcra_launch.argtypes = [p, p, p, p, p, i, i, i, p, p]
-        lib.mcra_launch.restype = i
-        lib._signatures_set = True
-    return lib
+def _launch(cfg, Y, Sf, lam, p, sr, stream) -> int:
+    """``mcra_frames``' launch into lam and p (and sr, where not None); its
+    error code."""
+    T = Y.shape[0]
+    params = _mcra_params(cfg)
+    return _build.load("mcra").mcra_launch(
+        Y.data_ptr(), Sf.data_ptr(), lam.data_ptr(), p.data_ptr(), sr.data_ptr() if sr is not None else None, T,
+        Y.numel() // T, Y.shape[-1], ctypes.addressof(params), stream,
+    )
 
 
 def mcra_frames(cfg, Y_tf: torch.Tensor, Sf: torch.Tensor, return_sr: bool = False):
@@ -41,15 +42,9 @@ def mcra_frames(cfg, Y_tf: torch.Tensor, Sf: torch.Tensor, return_sr: bool = Fal
     _build.check_tensors("mcra_run", Y, Sf)
     if Y.ndim < 2 or Sf.shape != Y.shape or Y.shape[-1] != cfg.half_bin:
         raise ValueError(f"mcra_run: the power must be [T, ..., F] with F = {cfg.half_bin}, got {tuple(Y.shape)}")
-    T, F = Y.shape[0], Y.shape[-1]
-    NL = Y.numel() // T
     outs = [torch.empty_like(Y) for _ in range(3 if return_sr else 2)]
-    params = _mcra_params(cfg)
-    err = _library().mcra_launch(
-        Y.data_ptr(), Sf.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-        outs[2].data_ptr() if return_sr else None, T, NL, F, ctypes.addressof(params),
-        torch.cuda.current_stream(Y.device).cuda_stream,
-    )
+    err = _launch(cfg, Y, Sf, outs[0], outs[1], outs[2] if return_sr else None,
+                  torch.cuda.current_stream(Y.device).cuda_stream)
     _build.check_launch("mcra", err, "mcra_run")
     count("launch.mcra_run")
     return tuple(outs)

@@ -364,14 +364,19 @@ class _LaneParams(ctypes.Structure):
     ]
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("mvdr")
-    if not getattr(lib, "_signatures_set", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_mvdr_scan_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p]
-        lib.fused_mvdr_scan_launch.restype = i
-        lib._signatures_set = True
-    return lib
+def _launch(Zf, g, p, lam, sv, Y, alpha_v, diag, rel_diag, alpha_xi, gmin, stream) -> int:
+    """``fused_mvdr_scan``'s launch on Zf [T, B, F, M, 2] into Y (p and lam
+    both None: no gain); its error code."""
+    T, B, F, M, _ = Zf.shape
+    params = _LaneParams(
+        alpha_v=alpha_v, beta_v=1.0 - alpha_v, diag=diag, rel_diag_m=rel_diag / M,
+        alpha_xi=alpha_xi, one_m_alpha_xi=1.0 - alpha_xi, gmin=gmin, log_gmin=float(np.log(gmin)),
+    )
+    return _build.load("mvdr").fused_mvdr_scan_launch(
+        Zf.data_ptr(), g.data_ptr(), p.data_ptr() if p is not None else None,
+        lam.data_ptr() if lam is not None else None, sv.data_ptr(), Y.data_ptr(), M, T, B, F,
+        ctypes.addressof(params), stream,
+    )
 
 
 def fused_mvdr_scan(
@@ -401,15 +406,8 @@ def fused_mvdr_scan(
     if g.shape != (T, B, F) or sv.shape != (F, M, 2) or any(a.shape != (T, B, F) for a in extra):
         raise ValueError("fused_mvdr_scan: gate, p and lam must be [T, B, F] and steer [F, M]")
     Y = torch.empty((T, B, F, 2), dtype=torch.float32, device=Z.device)
-    params = _LaneParams(
-        alpha_v=alpha_v, beta_v=1.0 - alpha_v, diag=diag, rel_diag_m=rel_diag / M,
-        alpha_xi=alpha_xi, one_m_alpha_xi=1.0 - alpha_xi, gmin=gmin, log_gmin=float(np.log(gmin)),
-    )
-    p_ptr, lam_ptr = (a.data_ptr() for a in extra) if extra else (None, None)
-    err = _library().fused_mvdr_scan_launch(
-        Zf.data_ptr(), g.data_ptr(), p_ptr, lam_ptr, sv.data_ptr(), Y.data_ptr(),
-        M, T, B, F, ctypes.addressof(params), torch.cuda.current_stream(Z.device).cuda_stream,
-    )
+    err = _launch(Zf, g, *(extra or (None, None)), sv, Y, alpha_v, diag, rel_diag, alpha_xi, gmin,
+                  torch.cuda.current_stream(Z.device).cuda_stream)
     _build.check_launch("mvdr", err, "fused_mvdr_scan")
     count("launch.fused_mvdr_scan")
     return torch.view_as_complex(Y)

@@ -342,13 +342,15 @@ def _tables(L: int, device) -> torch.Tensor:
     return torch.as_tensor(tabs, dtype=torch.float32, device=device)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("sgsc")
-    if not getattr(lib, "_signatures_set", False):
-        lib.fused_sgsc_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-        lib.fused_sgsc_launch.restype = ctypes.c_int
-        lib._signatures_set = True
-    return lib
+def _launch(sig, sf, cfg, out, p, bm, dec, stream) -> int:
+    """``subband_gsc_frames``' launch into out, p, bm and dec; its error code."""
+    B, _, S = sig.shape
+    L = cfg.frame_len
+    params = _sgsc_params(cfg)
+    return _build.load("sgsc").fused_sgsc_launch(
+        sig.data_ptr(), sf.data_ptr(), _tables(L, sig.device).data_ptr(), out.data_ptr(), p.data_ptr(),
+        bm.data_ptr(), dec.data_ptr(), B, S // L, L, ctypes.addressof(params), stream,
+    )
 
 
 def subband_gsc_frames(sig: torch.Tensor, sf: torch.Tensor, cfg, decisions: bool = False):
@@ -370,11 +372,7 @@ def subband_gsc_frames(sig: torch.Tensor, sf: torch.Tensor, cfg, decisions: bool
     p = torch.empty((B, T, F), dtype=torch.float32, device=dev)
     bm = torch.empty((B, 4, S), dtype=torch.float32, device=dev)
     dec = torch.empty((B, T, F), dtype=torch.uint8, device=dev)
-    params = _sgsc_params(cfg)
-    err = _library().fused_sgsc_launch(
-        sig.data_ptr(), sf.data_ptr(), _tables(L, dev).data_ptr(), out.data_ptr(), p.data_ptr(), bm.data_ptr(),
-        dec.data_ptr(), B, T, L, ctypes.addressof(params), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    err = _launch(sig, sf, cfg, out, p, bm, dec, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("sgsc", err, "fused_subband_gsc")
     count("launch.fused_subband_gsc")
     return (out, p, bm, dec) if decisions else (out, p, bm)

@@ -63,13 +63,11 @@ def srp_spectrum_plain(y2: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("srp")
-    if not getattr(lib, "_signatures_set", False):
-        lib.fused_srp_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.fused_srp_launch.restype = ctypes.c_int
-        lib._signatures_set = True
-    return lib
+def _launch(y2, G, out, stream) -> int:
+    """``srp_spectrum``'s launch into out [R, Theta]; its error code."""
+    R, F, M2 = y2.shape
+    return _build.load("srp").fused_srp_launch(y2.data_ptr(), G.data_ptr(), out.data_ptr(), R, F, M2 // 2,
+                                               G.shape[2] // 2, stream)
 
 
 def srp_spectrum(y2: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
@@ -86,10 +84,7 @@ def srp_spectrum(y2: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"fused_srp_spectrum: the kernel takes M >= 2 mics, got {M2 // 2}")
     Theta = G.shape[2] // 2
     out = torch.empty((R, Theta), dtype=torch.float32, device=y2.device)
-    err = _library().fused_srp_launch(
-        y2.data_ptr(), G.data_ptr(), out.data_ptr(), R, F, M2 // 2, Theta,
-        torch.cuda.current_stream(y2.device).cuda_stream,
-    )
+    err = _launch(y2, G, out, torch.cuda.current_stream(y2.device).cuda_stream)
     _build.check_launch("srp", err, "fused_srp_spectrum")
     count("launch.fused_srp_spectrum")
     return out

@@ -44,14 +44,12 @@ def _params(cfg) -> _WpeParams:
                       p_init=cfg.p_init, inv_c=1.0 / cfg.n_channels)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("wpe")
-    if not getattr(lib, "_signatures_set", False):
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.wpe_launch.argtypes = [p, ll, ll, ll, ll, p, i, i, i, i, i, i, p, p]
-        lib.wpe_launch.restype = i
-        lib._signatures_set = True
-    return lib
+def _launch(cfg, D, e, stream) -> int:
+    """``wpe_frames``' launch on D [T, NB, F, C] (any strides) into e; its error code."""
+    T, NB, F, C = D.shape
+    params = _params(cfg)
+    return _build.load("wpe").wpe_launch(D.data_ptr(), *D.stride(), e.data_ptr(), T, NB, F, C, cfg.filter_len,
+                                         cfg.delay, ctypes.addressof(params), stream)
 
 
 def check_input(cfg, D_tf: torch.Tensor) -> None:
@@ -77,11 +75,7 @@ def wpe_frames(cfg, D_tf: torch.Tensor) -> torch.Tensor:
     D = D_tf.reshape(T, -1, F, C)  # a view of wpe_analysis's layout
     with torch.cuda.device(D.device):
         e = torch.empty(D.shape, dtype=D.dtype, device=D.device)
-        params = _params(cfg)
-        err = _library().wpe_launch(
-            D.data_ptr(), *D.stride(), e.data_ptr(), T, D.shape[1], F, C, cfg.filter_len, cfg.delay,
-            ctypes.addressof(params), torch.cuda.current_stream(D.device).cuda_stream,
-        )
+        err = _launch(cfg, D, e, torch.cuda.current_stream(D.device).cuda_stream)
     _build.check_launch("wpe", err, "wpe_run")
     count("launch.wpe_run")
     return e.view(D_tf.shape)

@@ -31,12 +31,11 @@ hold.
 from __future__ import annotations
 
 import argparse
-import ctypes
+import contextlib
 import json
 import os
 import re
 import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -119,9 +118,7 @@ def build(variants):
         out.mkdir(parents=True, exist_ok=True)
         for name in LIBS:
             lib = out / f"{name}.so"
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.SOURCE_FLAGS.get(name, ()),
-                   "-I", str(csrc), "-o", str(lib), str(Path(csrc) / f"{name}.cu")]
-            procs[name, label] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            procs[name, label] = (lib, _build.start_nvcc(name, lib, csrc=csrc))
     libs = {}
     for key, (lib, proc) in procs.items():
         log, _ = proc.communicate()
@@ -138,12 +135,15 @@ def build(variants):
     return libs
 
 
-def use(libs, label):
-    """Point the K5/K8/K7 wrappers at variant label's libraries."""
+def use(libs, label) -> contextlib.ExitStack:
+    """A context in which the K5/K8/K7 wrappers run variant label's
+    libraries."""
     from distantspeech_tpu_torch.ops import _build
 
+    stack = contextlib.ExitStack()
     for name in LIBS:
-        _build._loaded[name] = ctypes.CDLL(str(libs[name, label]))
+        stack.enter_context(_build.swapped(name, libs[name, label]))
+    return stack
 
 
 def main() -> int:
@@ -204,23 +204,24 @@ def main() -> int:
 
     ok = True
     for label in labels:
-        use(libs, label)
-        for (name, size), (fn, ins, cfg, want) in cases.items():
-            got = fn(*ins, cfg)
-            torch.cuda.synchronize()
-            tol = cs.FLIP if (size == "full" and name in ("K5 postfilter", "K7")) else cs.TIGHT
-            rel = max(cs.rel_err(g, w)[0] for g, w in zip(got, want))
-            good = rel < tol and all(bool(torch.isfinite(g).all()) for g in got)
-            ok = ok and good
-            print(f"{'ok' if good else 'FAILED'}: {label} {name} ({size}) vs plain: rel {rel:.3e} < {tol:g}", flush=True)
+        with use(libs, label):
+            for (name, size), (fn, ins, cfg, want) in cases.items():
+                got = fn(*ins, cfg)
+                torch.cuda.synchronize()
+                tol = cs.FLIP if (size == "full" and name in ("K5 postfilter", "K7")) else cs.TIGHT
+                rel = max(cs.rel_err(g, w)[0] for g, w in zip(got, want))
+                good = rel < tol and all(bool(torch.isfinite(g).all()) for g in got)
+                ok = ok and good
+                print(f"{'ok' if good else 'FAILED'}: {label} {name} ({size}) vs plain: rel {rel:.3e} < {tol:g}",
+                      flush=True)
 
     times = {(label, name): [] for label in labels for name, size in cases if size == "full"}
     for order in (labels, labels[::-1]):
         for label in order:
-            use(libs, label)
-            for (name, size), (fn, ins, cfg, _) in cases.items():
-                if size == "full":
-                    times[label, name].append(benchmark(fn, *ins, cfg)["per_call_s"] * 1e3)
+            with use(libs, label):
+                for (name, size), (fn, ins, cfg, _) in cases.items():
+                    if size == "full":
+                        times[label, name].append(benchmark(fn, *ins, cfg)["per_call_s"] * 1e3)
     med = {}
     for (label, name), v in times.items():
         med[f"{name} {label}"] = float(np.median(v))

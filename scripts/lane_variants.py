@@ -40,12 +40,11 @@ fails or a gate does not hold.
 from __future__ import annotations
 
 import argparse
-import ctypes
+import contextlib
 import json
 import os
 import re
 import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -151,9 +150,7 @@ def build(variants):
         out.mkdir(parents=True, exist_ok=True)
         for name in LIBS:
             lib = out / f"{name}.so"
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.SOURCE_FLAGS.get(name, ()),
-                   "-I", str(csrc), "-o", str(lib), str(Path(csrc) / f"{name}.cu")]
-            procs[name, label] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            procs[name, label] = (lib, _build.start_nvcc(name, lib, csrc=csrc))
     libs = {}
     for key, (lib, proc) in procs.items():
         log, _ = proc.communicate()
@@ -171,12 +168,15 @@ def build(variants):
     return libs
 
 
-def use(libs, label):
-    """Point the K2 and K10 wrappers at variant label's libraries."""
+def use(libs, label) -> contextlib.ExitStack:
+    """A context in which the K2 and K10 wrappers run variant label's
+    libraries."""
     from distantspeech_tpu_torch.ops import _build
 
+    stack = contextlib.ExitStack()
     for name in LIBS:
-        _build._loaded[name] = ctypes.CDLL(str(libs[name, label]))
+        stack.enter_context(_build.swapped(name, libs[name, label]))
+    return stack
 
 
 def main() -> int:
@@ -232,22 +232,22 @@ def main() -> int:
 
     ok = True
     for label in labels:
-        use(libs, label)
-        for name, got, want, tol in (("K2", ce.enhance_lanes(*gate_k2), want_k2, cs.TIGHT),
-                                     ("K10", cr.srp_spectrum(y2, G), want_k10, cs.SRP_GATE)):
-            torch.cuda.synchronize()
-            rel = cs.rel_err(got, want)[0]
-            good = rel < tol and bool(torch.isfinite(got).all())
-            ok = ok and good
-            print(f"{'ok' if good else 'FAILED'}: {label} {name} vs plain: rel {rel:.3e} < {tol:g}", flush=True)
+        with use(libs, label):
+            for name, got, want, tol in (("K2", ce.enhance_lanes(*gate_k2), want_k2, cs.TIGHT),
+                                         ("K10", cr.srp_spectrum(y2, G), want_k10, cs.SRP_GATE)):
+                torch.cuda.synchronize()
+                rel = cs.rel_err(got, want)[0]
+                good = rel < tol and bool(torch.isfinite(got).all())
+                ok = ok and good
+                print(f"{'ok' if good else 'FAILED'}: {label} {name} vs plain: rel {rel:.3e} < {tol:g}", flush=True)
 
     cases = {"K2": (ce.enhance_lanes, main_k2), "K10": (cr.srp_spectrum, (y2, G))}
     times = {(label, name): [] for label in labels for name in cases}
     for order in (labels, labels[::-1]):
         for label in order:
-            use(libs, label)
-            for name, (fn, a) in cases.items():
-                times[label, name].append(benchmark(fn, *a)["per_call_s"] * 1e3)
+            with use(libs, label):
+                for name, (fn, a) in cases.items():
+                    times[label, name].append(benchmark(fn, *a)["per_call_s"] * 1e3)
     med = {}
     for (label, name), v in times.items():
         med[f"{name} {label}"] = float(np.median(v))

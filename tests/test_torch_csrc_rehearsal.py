@@ -4,8 +4,10 @@ K9 (csrc/sgsc.cu), K1 (csrc/mvdr.cu), K6 (csrc/kws.cu), K10 (csrc/srp.cu),
 the MCRA lane kernel (csrc/mcra.cu), the TDGSC front end
 (csrc/gsc_front.cu) and WPE's recursion (csrc/wpe.cu) rehearsed on the CPU: each source compiled
 with g++ against the fiber shim in ``tests/torch_cuda_shim``,
-launched through its C launcher on CPU buffers and held to the kernel's
-plain version at 1e-4 of max|out| (bm likewise, p absolutely).  K5 and K8
+launched on CPU buffers through its wrapper's own marshalling function
+(the g++ build loaded in place of the nvcc one by ``_build.swapped``) and
+held to the kernel's plain version at 1e-4 of max|out| (bm likewise, p
+absolutely).  K5 and K8
 run B=2 x T=6 frames at Lf=256 and 128 with 4 mics, and at Lf=128 with 2,
 3, 6 and 8 (K5's C = 1, 2, 5 and 7), and with the channel count a run-time
 argument at 12 mics (Lf=128), 16 (K5 with the postfilter) and 20 (K8) at
@@ -50,14 +52,19 @@ and over 9 (fewer than delay + N) and at K = 160 (two tiles a thread), held
 to the frame loop at 1e-6 of max|e|.  The launches run in child processes
 (one per kernel family, at once) with a time limit (``rehearse.py``);
 mismatched barriers abort the child (the shim finds a block whose threads
-all wait) and fail the test."""
+all wait) and fail the test.  The refusal tests bind the g++ builds in
+this process through ``_build.SIGNATURES`` (``_build.open_library``): the
+launchers refuse before any launch."""
 
+import ctypes
 import json
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
+
+from distantspeech_tpu_torch.ops import _build
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "torch_cuda_shim"))
 import rehearse  # noqa: E402
@@ -159,22 +166,13 @@ def test_shim_refuses_what_the_card_refuses(libs):
     an Lf that is not a power of two, and a C above 7 whose buffers need a
     global scratch (C = 31 with the postfilter at Lf=256) when it is given
     none."""
-    code = (
-        "import ctypes, sys\n"
-        f"lib = ctypes.CDLL({str(libs['flms'])!r})\n"
-        "fn = lib.fused_tdgsc_launch\n"
-        "fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2\n"
-        "params = (ctypes.c_float * 64)()\n"
-        "buf = (ctypes.c_float * 8)()\n"
-        "a = ctypes.addressof(buf)\n"
-        "print(fn(a, a, a, a, a, a, a, None, 7, 1, 1, 2048, ctypes.addressof(params), None),"
-        " fn(a, a, a, a, a, a, a, None, 31, 1, 1, 256, ctypes.addressof(params), None),"
-        " fn(a, a, a, None, a, a, a, None, 0, 1, 1, 256, ctypes.addressof(params), None),"
-        " fn(a, a, a, None, a, a, a, None, 3, 1, 1, 96, ctypes.addressof(params), None))\n"
-    )
-    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=60)
-    assert run.returncode == 0, run.stderr[-2000:]
-    too_big, bad_c, no_c, bad_lf = (int(v) for v in run.stdout.split())
+    fn = _build.open_library("flms", libs["flms"]).fused_tdgsc_launch
+    buf, params = (ctypes.c_float * 8)(), (ctypes.c_float * 64)()
+    a, pp = ctypes.addressof(buf), ctypes.addressof(params)
+    too_big, bad_c, no_c, bad_lf = (fn(a, a, a, a, a, a, a, None, 7, 1, 1, 2048, pp, None),
+                                    fn(a, a, a, a, a, a, a, None, 31, 1, 1, 256, pp, None),
+                                    fn(a, a, a, None, a, a, a, None, 0, 1, 1, 256, pp, None),
+                                    fn(a, a, a, None, a, a, a, None, 3, 1, 1, 96, pp, None))
     assert too_big != 0 and bad_c != 0 and no_c != 0 and bad_lf != 0
 
 
@@ -185,31 +183,17 @@ def test_launchers_refuse_shapes_just_outside_their_ranges(libs):
     with 9 and at 768 and 2048 with 2: the general variant keeps its lane
     states there) or do not need (256 with 8) a global scratch, and a launch
     that needs one refuses to run without it."""
-    code = (
-        "import ctypes\n"
-        f"enh, fd, sg = (ctypes.CDLL(p) for p in {[str(libs[n]) for n in ('enhance', 'fdgsc', 'sgsc')]!r})\n"
-        "params = (ctypes.c_float * 64)()\n"
-        "buf = (ctypes.c_float * 8)()\n"
-        "a, pp = ctypes.addressof(buf), ctypes.addressof(params)\n"
-        "enh.fused_enhance_full_scratch_floats.argtypes = [ctypes.c_int] * 2\n"
-        "enh.fused_enhance_full_scratch_floats.restype = ctypes.c_longlong\n"
-        "k4 = enh.fused_enhance_full_launch\n"
-        "k4.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 2\n"
-        "k8 = fd.fused_fdgsc_launch\n"
-        "k8.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2\n"
-        "k9 = sg.fused_sgsc_launch\n"
-        "k9.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2\n"
-        "print([enh.fused_enhance_full_scratch_floats(m, n) for m, n in ((1, 256), (2, 384), (2, 128))],"
-        " [enh.fused_enhance_full_scratch_floats(m, n) for m, n in ((8, 256), (8, 1024), (9, 256), (2, 768),"
-        " (2, 2048))],"
-        " [k4(a, a, a, a, None, m, 1, n, 1, 1.0, pp, None) for m, n in ((1, 256), (2, 384), (2, 128))],"
-        " [k4(a, a, a, a, None, m, 1, n, 1, 1.0, pp, None) for m, n in ((8, 1024), (9, 256), (2, 768))],"
-        " [k8(a, a, a, a, a, a, a, a, None, m, 1, 1, 256, pp, None) for m in (1, 40)],"
-        " [k9(a, a, a, a, a, a, a, 1, 1, lf, pp, None) for lf in (32, 512)], sep=';')\n"
-    )
-    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=60)
-    assert run.returncode == 0, run.stderr[-2000:]
-    refused, scratch, k4_bad, k4_no_scratch, k8_bad, k9_bad = (json.loads(v) for v in run.stdout.strip().split(";"))
+    enh, fd, sg = (_build.open_library(n, libs[n]) for n in ("enhance", "fdgsc", "sgsc"))
+    buf, params = (ctypes.c_float * 8)(), (ctypes.c_float * 64)()
+    a, pp = ctypes.addressof(buf), ctypes.addressof(params)
+    k4, k8, k9 = enh.fused_enhance_full_launch, fd.fused_fdgsc_launch, sg.fused_sgsc_launch
+    refused = [enh.fused_enhance_full_scratch_floats(m, n) for m, n in ((1, 256), (2, 384), (2, 128))]
+    scratch = [enh.fused_enhance_full_scratch_floats(m, n) for m, n in ((8, 256), (8, 1024), (9, 256), (2, 768),
+                                                                        (2, 2048))]
+    k4_bad = [k4(a, a, a, a, None, m, 1, n, 1, 1.0, pp, None) for m, n in ((1, 256), (2, 384), (2, 128))]
+    k4_no_scratch = [k4(a, a, a, a, None, m, 1, n, 1, 1.0, pp, None) for m, n in ((8, 1024), (9, 256), (2, 768))]
+    k8_bad = [k8(a, a, a, a, a, a, a, a, None, m, 1, 1, 256, pp, None) for m in (1, 40)]
+    k9_bad = [k9(a, a, a, a, a, a, a, 1, 1, lf, pp, None) for lf in (32, 512)]
     assert refused == [-1] * 3 and scratch[0] == 0 and all(n > 0 for n in scratch[1:])
     assert all(e != 0 for e in k4_bad + k4_no_scratch + k8_bad + k9_bad)
 
@@ -219,26 +203,15 @@ def test_the_front_end_launcher_refuses_what_it_does_not_take(libs):
     power of two from 2 to 2048, no taps, no utterance and no frame, and a
     shape whose buffers need a global scratch (16 mics at Lf=256) when it is
     given none; its scratch is 0 at the cells' shape."""
-    code = (
-        "import ctypes\n"
-        f"lib = ctypes.CDLL({str(libs['gsc_front'])!r})\n"
-        "params = (ctypes.c_float * 16)()\n"
-        "buf = (ctypes.c_float * 8)()\n"
-        "a, pp = ctypes.addressof(buf), ctypes.addressof(params)\n"
-        "sc = lib.gsc_front_scratch_floats\n"
-        "sc.argtypes, sc.restype = [ctypes.c_int] * 4, ctypes.c_longlong\n"
-        "fn = lib.gsc_front_launch\n"
-        "fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5"
-        " + [ctypes.c_void_p] * 2\n"
-        "shapes = ((1, 1, 256, 84), (4, 1, 96, 84), (4, 1, 4096, 84), (4, 1, 256, 0), (4, 0, 256, 84))\n"
-        "print([sc(*s) for s in shapes], [sc(4, 128, 256, 84), sc(16, 1, 256, 84)],"
-        " [fn(a, 0, 0, a, a, a, a, a, a, a, None, b, m, 1, lf, k, pp, None) for m, b, lf, k in shapes],"
-        " fn(a, 0, 0, a, a, a, a, a, a, a, None, 1, 4, 0, 256, 84, pp, None),"
-        " fn(a, 0, 0, a, a, a, a, a, a, a, None, 1, 16, 1, 256, 84, pp, None), sep=';')\n"
-    )
-    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=60)
-    assert run.returncode == 0, run.stderr[-2000:]
-    refused, sizes, bad, no_frame, no_scratch = (json.loads(v) for v in run.stdout.strip().split(";"))
+    lib = _build.open_library("gsc_front", libs["gsc_front"])
+    buf, params = (ctypes.c_float * 8)(), (ctypes.c_float * 16)()
+    a, pp = ctypes.addressof(buf), ctypes.addressof(params)
+    sc, fn = lib.gsc_front_scratch_floats, lib.gsc_front_launch
+    shapes = ((1, 1, 256, 84), (4, 1, 96, 84), (4, 1, 4096, 84), (4, 1, 256, 0), (4, 0, 256, 84))
+    refused, sizes = [sc(*s) for s in shapes], [sc(4, 128, 256, 84), sc(16, 1, 256, 84)]
+    bad = [fn(a, 0, 0, a, a, a, a, a, a, a, None, b, m, 1, lf, k, pp, None) for m, b, lf, k in shapes]
+    no_frame = fn(a, 0, 0, a, a, a, a, a, a, a, None, 1, 4, 0, 256, 84, pp, None)
+    no_scratch = fn(a, 0, 0, a, a, a, a, a, a, a, None, 1, 16, 1, 256, 84, pp, None)
     assert refused == [-1] * 5 and sizes[0] == 0 and sizes[1] > 0
     assert all(e != 0 for e in bad + [no_frame, no_scratch])
 
@@ -247,23 +220,13 @@ def test_k2_and_k10_launchers_refuse_what_they_do_not_take(libs):
     """K10's launcher refuses fewer than 2 mics and an empty row, bin or
     angle range, and K2's fewer than 2 mics and, where its memory lanes
     need one (28 mics), a missing scratch, before any launch."""
-    code = (
-        "import ctypes\n"
-        f"srp, enh = (ctypes.CDLL(p) for p in {[str(libs[n]) for n in ('srp', 'enhance')]!r})\n"
-        "params = (ctypes.c_float * 64)()\n"
-        "buf = (ctypes.c_float * 8)()\n"
-        "a, pp = ctypes.addressof(buf), ctypes.addressof(params)\n"
-        "k10 = srp.fused_srp_launch\n"
-        "k10.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]\n"
-        "k2 = enh.fused_enhance_launch\n"
-        "k2.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2\n"
-        "print([k10(a, a, a, r, f, m, th, None) for r, f, m, th in ((1, 1, 1, 1), (0, 1, 2, 1), (1, 0, 2, 1),"
-        " (1, 1, 2, 0))],"
-        " [k2(a, a, a, a, None, m, 1, 1, 1, pp, None) for m in (1, 28)], sep=';')\n"
-    )
-    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=60)
-    assert run.returncode == 0, run.stderr[-2000:]
-    k10_bad, k2_bad = (json.loads(v) for v in run.stdout.strip().split(";"))
+    k10 = _build.open_library("srp", libs["srp"]).fused_srp_launch
+    k2 = _build.open_library("enhance", libs["enhance"]).fused_enhance_launch
+    buf, params = (ctypes.c_float * 8)(), (ctypes.c_float * 64)()
+    a, pp = ctypes.addressof(buf), ctypes.addressof(params)
+    k10_bad = [k10(a, a, a, r, f, m, th, None) for r, f, m, th in ((1, 1, 1, 1), (0, 1, 2, 1), (1, 0, 2, 1),
+                                                                    (1, 1, 2, 0))]
+    k2_bad = [k2(a, a, a, a, None, m, 1, 1, 1, pp, None) for m in (1, 28)]
     assert all(e != 0 for e in k10_bad + k2_bad)
 
 
@@ -274,30 +237,21 @@ def test_the_wpe_launcher_refuses_what_it_does_not_take(libs):
     query refuses the same widths; just inside (16 x 10, 32 x 5, delay + N =
     200) it takes them, the cell's widths one state a block of 224 threads,
     K = 4 sixteen states a block."""
-    code = (
-        "import ctypes\n"
-        f"lib = ctypes.CDLL({str(libs['wpe'])!r})\n"
-        "params = (ctypes.c_float * 8)()\n"
-        "buf = (ctypes.c_float * 8)()\n"
-        "a, pp = ctypes.addressof(buf), ctypes.addressof(params)\n"
-        "fn = lib.wpe_launch\n"
-        "fn.argtypes = [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 6"
-        " + [ctypes.c_void_p] * 2\n"
-        "sh = lib.wpe_shape\n"
-        "sh.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4\n"
-        "def shape(c, n, d):\n"
-        "    v = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()]\n"
-        "    ok = sh(c, n, d, *(ctypes.byref(x) for x in v))\n"
-        "    return [ok] + [x.value for x in v[:3]]\n"
-        "widths = ((16, 11, 3), (33, 1, 3), (0, 10, 3), (8, 0, 3), (8, 10, 0), (8, 10, 191))\n"
-        "inside = ((16, 10, 3), (32, 5, 3), (8, 10, 190), (8, 10, 3), (2, 2, 2))\n"
-        "print([fn(a, 1, 1, 1, 1, a, 4, 1, 3, c, n, d, pp, None) for c, n, d in widths],"
-        " [fn(a, 1, 1, 1, 1, a, t, b, f, 8, 10, 3, pp, None) for t, b, f in ((0, 1, 3), (4, 0, 3), (4, 1, 0))],"
-        " [shape(*w)[0] for w in widths], [shape(*w) for w in inside], sep=';')\n"
-    )
-    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=60)
-    assert run.returncode == 0, run.stderr[-2000:]
-    bad_widths, bad_sizes, refused, taken = (json.loads(v) for v in run.stdout.strip().split(";"))
+    lib = _build.open_library("wpe", libs["wpe"])
+    buf, params = (ctypes.c_float * 8)(), (ctypes.c_float * 8)()
+    a, pp = ctypes.addressof(buf), ctypes.addressof(params)
+    fn = lib.wpe_launch
+
+    def shape(c, n, d):
+        v = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()]
+        ok = lib.wpe_shape(c, n, d, *(ctypes.byref(x) for x in v))
+        return [ok] + [x.value for x in v[:3]]
+
+    widths = ((16, 11, 3), (33, 1, 3), (0, 10, 3), (8, 0, 3), (8, 10, 0), (8, 10, 191))
+    inside = ((16, 10, 3), (32, 5, 3), (8, 10, 190), (8, 10, 3), (2, 2, 2))
+    bad_widths = [fn(a, 1, 1, 1, 1, a, 4, 1, 3, c, n, d, pp, None) for c, n, d in widths]
+    bad_sizes = [fn(a, 1, 1, 1, 1, a, t, b, f, 8, 10, 3, pp, None) for t, b, f in ((0, 1, 3), (4, 0, 3), (4, 1, 0))]
+    refused, taken = [shape(*w)[0] for w in widths], [shape(*w) for w in inside]
     assert all(e != 0 for e in bad_widths + bad_sizes) and refused == [-1] * 6
     assert [t[0] for t in taken] == [0] * 5
     assert taken[3][1:] == [224, 1, 1] and taken[4][1:3] == [8, 16] and taken[0][3] == 2

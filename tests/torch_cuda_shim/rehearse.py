@@ -9,7 +9,11 @@ K4 and K2 (``enhance``), K9 (``sgsc``), K1 (``mvdr``), K6 (``kws``), K10
 (``srp``), the MCRA lane kernel (``mcra``), the TDGSC front end
 (``gsc_front``) or WPE's recursion (``wpe``) from such libraries on CPU
 buffers and prints, as one JSON object, each case's gaps to the kernel's
-plain version:
+plain version.  Each case loads its library in place of the nvcc build
+(``_build.swapped``, which types it from ``_build.SIGNATURES``) and calls
+the wrapper's own marshalling function (``cuda_flms._tdgsc_launch``, ...)
+with stream None, so that the arguments the card gets are the ones
+rehearsed:
 
     python tests/torch_cuda_shim/rehearse.py LIB_DIR [KERNEL ...]
 
@@ -148,6 +152,7 @@ LIBRARIES = {"k1": "mvdr", "k2": "enhance", "k5": "flms", "k8": "fdgsc", "k7": "
              "mcra": "mcra", "k6": "kws", "k10": "srp", "front": "gsc_front", "wpe": "wpe"}
 
 
+# a case (kernel, variant, size, mics) runs in run_<kernel>(variant, size, mics, seed)
 def case_name(kernel: str, variant: str, size: int, mics: int) -> str:
     return f"{kernel}-{variant}-{size}" + ("" if mics in (4, 1) or kernel in ("k6", "k1", "k10") else f"-m{mics}")
 
@@ -207,13 +212,23 @@ def _short_mcra(base):
     return Short
 
 
+def _nan(t):
+    """``t`` (a scratch buffer, or None) filled with NaN, so that a read of
+    a word the kernel did not write shows."""
+    return t.fill_(float("nan")) if t is not None else None
+
+
+def _floats(t) -> int:
+    return t.numel() if t is not None else 0
+
+
 def _gap(got, want) -> float:
     """max |got - want| / max |want|."""
     got, want = got.double(), want.double()
     return float((got - want).abs().max() / want.abs().max())
 
 
-def run_k5(lib, variant: str, Lf: int, mics: int, seed: int) -> dict:
+def run_k5(variant: str, Lf: int, mics: int, seed: int) -> dict:
     import numpy as np
     import torch
 
@@ -228,23 +243,14 @@ def run_k5(lib, variant: str, Lf: int, mics: int, seed: int) -> dict:
     yp = f32(rng.gamma(1.0, 1.0, (B, T, F)) * rng.uniform(0.2, 5.0, (B, T, 1)))
     up = f32(rng.gamma(1.0, 1.0, (B, C, T, F))) if cfg.postfilter else None
     out, p = torch.full((B, S), float("nan")), torch.full((B, T, F), float("nan"))
-    params = cf._tdgsc_params(cfg)
-    lib.fused_tdgsc_scratch_floats.argtypes = [ctypes.c_int] * 4
-    lib.fused_tdgsc_scratch_floats.restype = ctypes.c_longlong
-    n_scratch = lib.fused_tdgsc_scratch_floats(C, B, Lf, int(cfg.postfilter))
-    scratch = torch.full((n_scratch,), float("nan")) if n_scratch > 0 else None
-    fn = lib.fused_tdgsc_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    err = fn(bm.data_ptr(), d.data_ptr(), yp.data_ptr(), up.data_ptr() if up is not None else None,
-             cf._tables(2 * Lf, torch.device("cpu")).data_ptr(), out.data_ptr(), p.data_ptr(),
-             scratch.data_ptr() if scratch is not None else None, C, B, T, Lf, ctypes.addressof(params), None)
+    scratch = _nan(cf._scratch("flms", bm.device, C, B, Lf, int(cfg.postfilter)))
+    err = cf._tdgsc_launch(bm, d, yp, up, cfg, out, p, scratch, None)
     want, p_want = cf.tdgsc_frames_plain(bm, d, yp, up, cfg)
     return {"err": err, "out": _gap(out, want), "p": float((p - p_want).abs().max()),
-            "p_moves": float(p_want.max() - p_want.min()), "scratch_floats": n_scratch}
+            "p_moves": float(p_want.max() - p_want.min()), "scratch_floats": _floats(scratch)}
 
 
-def run_k8(lib, Lf: int, mics: int, seed: int) -> dict:
+def run_k8(variant: str, Lf: int, mics: int, seed: int) -> dict:
     import numpy as np
     import torch
 
@@ -261,29 +267,21 @@ def run_k8(lib, Lf: int, mics: int, seed: int) -> dict:
     fbf = f32(fbf)
     yp = f32(rng.gamma(1.0, 1.0, (B, T, F)) * rng.uniform(0.2, 5.0, (B, T, 1)))
     out, p, bm = torch.full((B, S), float("nan")), torch.full((B, T, F), float("nan")), torch.full((B, M, S), float("nan"))
-    params = cf._fdgsc_params(cfg)
-    lib.fused_fdgsc_scratch_floats.argtypes = [ctypes.c_int] * 3
-    lib.fused_fdgsc_scratch_floats.restype = ctypes.c_longlong
-    n_scratch = lib.fused_fdgsc_scratch_floats(M, B, Lf)
-    scratch = torch.full((n_scratch,), float("nan")) if n_scratch > 0 else None
-    fn = lib.fused_fdgsc_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    err = fn(fbf.data_ptr(), dbm.data_ptr(), daic.data_ptr(), yp.data_ptr(),
-             cf._fdgsc_tables(2 * Lf, torch.device("cpu")).data_ptr(), out.data_ptr(), p.data_ptr(), bm.data_ptr(),
-             scratch.data_ptr() if scratch is not None else None, M, B, T, Lf, ctypes.addressof(params), None)
+    scratch = _nan(cf._scratch("fdgsc", dbm.device, M, B, Lf))
+    err = cf._fdgsc_launch(fbf, dbm, daic, yp, cfg, out, p, bm, scratch, None)
     want, p_want, bm_want = cf.fdgsc_frames_plain(fbf, dbm, daic, yp, cfg)
     return {"err": err, "out": _gap(out, want), "bm": _gap(bm, bm_want), "p": float((p - p_want).abs().max()),
-            "p_moves": float(p_want.max() - p_want.min()), "scratch_floats": n_scratch}
+            "p_moves": float(p_want.max() - p_want.min()), "scratch_floats": _floats(scratch)}
 
 
-def run_k7(lib, NB: int, hop: int, mics: int, seed: int) -> dict:
+def run_k7(variant: str, hop: int, mics: int, seed: int) -> dict:
     import numpy as np
     import torch
 
     from distantspeech_tpu_torch.adaptive.aec import AecConfig
     from distantspeech_tpu_torch.ops import cuda_aec as ca
 
+    NB = int(variant[2:])
     cfg = AecConfig(filter_len=NB * hop, num_block=NB)
     T7, B7 = K7_FRAMES, 2 if mics > 8 else 1
     S = T7 * hop
@@ -295,28 +293,20 @@ def run_k7(lib, NB: int, hop: int, mics: int, seed: int) -> dict:
     x = echo * rng.uniform(0.5, 2.0, (B7, mics, 1)) + 0.05 * rng.standard_normal((B7, mics, S))
     farp, xp = (a.contiguous() for a in ca._prepare(f32(far), f32(x), cfg))
     out, upd = torch.full((B7, mics, S), float("nan")), torch.full((B7, mics, T7), float("nan"))
-    params = ca._aec_params(cfg)
-    fn = lib.fused_aec_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    err = fn(farp.data_ptr(), xp.data_ptr(), ca._tables(cfg.n_fft, torch.device("cpu")).data_ptr(), out.data_ptr(),
-             upd.data_ptr(), NB, B7, mics, T7, hop, ctypes.addressof(params), None)
+    err = ca._launch(farp, xp, cfg, out, upd, None)
     want, u_want = ca.aec_frames_plain(farp, xp, cfg, decisions=True)
-    layout = lib.fused_aec_layout
-    layout.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
-    smem = ctypes.c_longlong()
-    per_block = layout(NB, hop, mics, ctypes.byref(smem))
+    per_block, smem = ca.launch_layout(cfg, mics)
     return {"err": err, "out": _gap(out, want), "flips": int(((upd > 0.5) != u_want).sum()),
-            "transfers": int(u_want.sum()), "mics_per_block": per_block, "smem_bytes": smem.value}
+            "transfers": int(u_want.sum()), "mics_per_block": per_block, "smem_bytes": smem}
 
 
-def run_k1(lib, gain: bool, mics: int, seed: int) -> dict:
+def run_k1(variant: str, size: int, mics: int, seed: int) -> dict:
     import numpy as np
     import torch
 
     from distantspeech_tpu_torch.ops import cuda_mvdr as cm
 
-    T1, F, M = K1_FRAMES, K1_BINS, mics
+    T1, F, M, gain = K1_FRAMES, K1_BINS, mics, variant == "gain"
     rng = np.random.default_rng(seed)
     cplx = lambda *s: rng.standard_normal(s) + 1j * rng.standard_normal(s)
     Z = torch.as_tensor((cplx(T1, B, F, M) + 2.0 * cplx(T1, B, F, 1)).astype(np.complex64))
@@ -327,21 +317,14 @@ def run_k1(lib, gain: bool, mics: int, seed: int) -> dict:
     pl = [torch.as_tensor(a, dtype=torch.float32) for a in (rng.random((T1, B, F)), rng.gamma(1.0, 1.0, (T1, B, F)))]
     p, lam = pl if gain else (None, None)
     kw = dict(alpha_v=0.9, diag=1e-6, rel_diag=1e-5, alpha_xi=0.92, gmin=0.0631)
-    params = cm._LaneParams(alpha_v=kw["alpha_v"], beta_v=1.0 - kw["alpha_v"], diag=kw["diag"],
-                            rel_diag_m=kw["rel_diag"] / M, alpha_xi=kw["alpha_xi"], one_m_alpha_xi=1.0 - kw["alpha_xi"],
-                            gmin=kw["gmin"], log_gmin=float(np.log(kw["gmin"])))
     Y = torch.full((T1, B, F, 2), float("nan"))
-    fn = lib.fused_mvdr_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
     Zf, sv = torch.view_as_real(Z).contiguous(), torch.view_as_real(steer).contiguous()
-    err = fn(Zf.data_ptr(), gate.data_ptr(), p.data_ptr() if gain else None, lam.data_ptr() if gain else None,
-             sv.data_ptr(), Y.data_ptr(), M, T1, B, F, ctypes.addressof(params), None)
+    err = cm._launch(Zf, gate, p, lam, sv, Y, stream=None, **kw)
     want = cm.fused_mvdr_scan_plain(Z, gate, steer, p=p, lam=lam, **kw)
     return {"err": err, "out": _gap(Y, torch.view_as_real(want))}
 
 
-def run_k6(lib, variant: str, Lf: int, seed: int) -> dict:
+def run_k6(variant: str, Lf: int, mics: int, seed: int) -> dict:
     import numpy as np
     import torch
 
@@ -358,12 +341,7 @@ def run_k6(lib, variant: str, Lf: int, seed: int) -> dict:
     x0, d = (a.contiguous() for a in cf._kws_inputs(torch.as_tensor(x, dtype=torch.float32), cfg))
     fifo = torch.zeros((B, cfg.delay_frames_n, Lf))
     out = torch.full((B, S), float("nan"))
-    params = cf._KwsParams(alpha=cfg.flms.alpha, one_m_alpha=1.0 - cfg.flms.alpha, mu2=2.0 * cfg.flms.mu)
-    fn = lib.fused_kws_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    err = fn(x0.data_ptr(), d.data_ptr(), cf._tables(2 * Lf, torch.device("cpu")).data_ptr(), fifo.data_ptr(),
-             out.data_ptr(), B, T6, Lf, cfg.delay_frames_n, ctypes.addressof(params), None)
+    err = cf._kws_launch(x0, d, cfg, fifo, out, None)
     want = cf.kws_frames_plain(x0, d, cfg)
     # the cleaner's share of the output: where it is 0, out is d to the bit
     cleaned = float((want - d).abs().max() / d.abs().max())
@@ -408,8 +386,7 @@ def _enhance_case(mics: int, inv_mode: str, n_fft: int, seed: int, frames: int =
     """K2's and K4's inputs: ``batch`` utterances x ``frames`` frames of
     speech-like bursts over noise, the guard off (no decision of the
     kernel's can part from the plain version's), rel_diag on (so that
-    rank-1 re-anchors its loading); (cfg, x, steer, steering planes, lane
-    params)."""
+    rank-1 re-anchors its loading); (cfg, x, steer, steering planes)."""
     import numpy as np
     import torch
 
@@ -428,82 +405,67 @@ def _enhance_case(mics: int, inv_mode: str, n_fft: int, seed: int, frames: int =
     x = torch.as_tensor(x, dtype=torch.float32).contiguous()
     steer = steering_vector(ArrayGeometry.linear(mics, 0.032), np.array([np.pi / 2, 0.0]), n_fft).astype(np.complex64)
     _, planes, _ = ce._prepare(x, steer, cfg, t_chunk, inv_mode)
-    return cfg, x, steer, planes, ce._lane_params(cfg, mics, t_chunk, inv_mode)
+    return cfg, x, steer, planes
 
 
-def run_k4(lib, mics: int, inv_mode: str, n_fft: int, seed: int) -> dict:
+def run_k4(inv_mode: str, n_fft: int, mics: int, seed: int) -> dict:
     import torch
 
+    from distantspeech_tpu_torch.ops import _build
     from distantspeech_tpu_torch.ops import cuda_enhance as ce
 
-    cfg, x, steer, planes, params = _enhance_case(mics, inv_mode, n_fft, seed)
+    cfg, x, steer, planes = _enhance_case(mics, inv_mode, n_fft, seed)
     y = torch.full((B, K4_FRAMES * cfg.stft.hop), float("nan"))
-    lib.fused_enhance_full_scratch_floats.argtypes = [ctypes.c_int] * 2
-    lib.fused_enhance_full_scratch_floats.restype = ctypes.c_longlong
-    n_scratch = lib.fused_enhance_full_scratch_floats(mics, n_fft)
+    n_scratch = _build.load("enhance").fused_enhance_full_scratch_floats(mics, n_fft)
     scratch = torch.full((B * n_scratch,), float("nan")) if n_scratch > 0 else None
-    fn = lib.fused_enhance_full_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), ce._dft_tables(cfg.stft, torch.device("cpu")).data_ptr(), planes.data_ptr(), y.data_ptr(),
-             scratch.data_ptr() if scratch is not None else None, mics, B, n_fft, K4_FRAMES,
-             cfg.stft.synthesis_gain, ctypes.addressof(params), None)
+    err = ce._full_launch(x, planes, cfg, K4_T_CHUNK, inv_mode, y, scratch, None)
     want = ce.fused_enhance_plain(x, steer, cfg, K4_T_CHUNK, inv_mode)
     return {"err": err, "out": _gap(y, want), "open_steady": open_steady(x, cfg, K4_T_CHUNK),
             "scratch_floats": n_scratch}
 
 
-def run_k2(lib, mics: int, inv_mode: str, n_fft: int, seed: int) -> dict:
+def run_k2(inv_mode: str, n_fft: int, mics: int, seed: int) -> dict:
     """K2: up to 8 mics over K2_FRAMES frames in chunks of K2_T_CHUNK, above
     over K4's; one utterance where 9 to 16 mics run 4 threads a lane (each
     of their shuffles a barrier of 32 threads in the shim), two else."""
     import torch
 
+    from distantspeech_tpu_torch.ops import _build
     from distantspeech_tpu_torch.ops import cuda_enhance as ce
 
     frames, tc = (K2_FRAMES, K2_T_CHUNK) if mics <= 8 else (K4_FRAMES, K4_T_CHUNK)
     nb = 1 if 8 < mics <= 16 else B
-    cfg, x, _, planes, params = _enhance_case(mics, inv_mode, n_fft, seed, frames, tc, nb)
+    cfg, x, _, planes = _enhance_case(mics, inv_mode, n_fft, seed, frames, tc, nb)
     Z = ce._analysis_planes(x, cfg.stft)
     Sf = ce._smoothed_power(Z, cfg.mvdr.mcra.b).contiguous()
     F = cfg.stft.half_bin
     Y = torch.full((frames, 2, nb, F), float("nan"))
-    lib.fused_enhance_scratch_floats.argtypes = [ctypes.c_int] * 3
-    lib.fused_enhance_scratch_floats.restype = ctypes.c_longlong
-    n_scratch = lib.fused_enhance_scratch_floats(mics, nb, F)
+    n_scratch = _build.load("enhance").fused_enhance_scratch_floats(mics, nb, F)
     scratch = torch.full((n_scratch,), float("nan")) if n_scratch > 0 else None
-    fn = lib.fused_enhance_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    err = fn(Z.data_ptr(), Sf.data_ptr(), planes.data_ptr(), Y.data_ptr(),
-             scratch.data_ptr() if scratch is not None else None, mics, nb, F, frames,
-             ctypes.addressof(params), None)
+    err = ce._lanes_launch(Z, Sf, planes, cfg, tc, inv_mode, Y, scratch, None)
     want = ce.enhance_lanes_plain(Z, Sf, planes, cfg, tc, inv_mode)
     return {"err": err, "out": _gap(Y, want), "open_steady": open_steady(x, cfg, tc),
             "gate_changes": gate_changes(x, cfg), "scratch_floats": n_scratch}
 
 
-def run_k10(lib, Theta: int, mics: int, seed: int) -> dict:
+def run_k10(variant: str, size: int, mics: int, seed: int) -> dict:
     import numpy as np
     import torch
 
     from distantspeech_tpu_torch.ops import cuda_srp as cr
 
-    R, F = K10_ROWS, K10_BINS
+    R, F, Theta = K10_ROWS, K10_BINS, int(variant[1:])
     rng = np.random.default_rng(seed)
     y = rng.standard_normal((R, F, mics)) + 1j * rng.standard_normal((R, F, mics))
     y2 = torch.as_tensor(np.concatenate([y.real, y.imag], axis=-1) / np.abs(y).max(), dtype=torch.float32).contiguous()
     grid = np.exp(1j * rng.uniform(0, 2 * np.pi, (Theta, F, mics))).astype(np.complex64)
     G = cr.pack_grid(grid, torch.device("cpu"))
     out = torch.full((R, Theta), float("nan"))
-    fn = lib.fused_srp_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(y2.data_ptr(), G.data_ptr(), out.data_ptr(), R, F, mics, Theta, None)
+    err = cr._launch(y2, G, out, None)
     return {"err": err, "out": _gap(out, cr.srp_spectrum_plain(y2, G))}
 
 
-def run_k9(lib, variant: str, Lf: int, seed: int) -> dict:
+def run_k9(variant: str, Lf: int, mics: int, seed: int) -> dict:
     import numpy as np
     import torch
 
@@ -524,19 +486,14 @@ def run_k9(lib, variant: str, Lf: int, seed: int) -> dict:
     S = sig.shape[-1]
     out, p, bm = torch.full((B, S), float("nan")), torch.full((B, T9, F), float("nan")), torch.full((B, 4, S), float("nan"))
     dec = torch.full((B, T9, F), 255, dtype=torch.uint8)
-    params = cs._sgsc_params(cfg)
-    fn = lib.fused_sgsc_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    err = fn(sig.data_ptr(), sf.data_ptr(), cs._tables(Lf, torch.device("cpu")).data_ptr(), out.data_ptr(),
-             p.data_ptr(), bm.data_ptr(), dec.data_ptr(), B, T9, Lf, ctypes.addressof(params), None)
+    err = cs._launch(sig, sf, cfg, out, p, bm, dec, None)
     want, p_want, bm_want, dec_want = cs.subband_gsc_frames_plain(sig, sf, cfg, decisions=True)
     return {"err": err, "out": _gap(out, want), "bm": _gap(bm, bm_want), "p": float((p - p_want).abs().max()),
             "p_moves": float(p_want.max() - p_want.min()), "flips": int((dec != dec_want).sum()),
             "repairs": int((dec_want & cs.REPAIR).sum())}
 
 
-def run_front(lib, variant: str, Lf: int, mics: int, seed: int) -> dict:
+def run_front(variant: str, Lf: int, mics: int, seed: int) -> dict:
     import numpy as np
     import torch
 
@@ -565,46 +522,31 @@ def run_front(lib, variant: str, Lf: int, mics: int, seed: int) -> dict:
     bm, d = torch.full((B, C, S), float("nan")), torch.full((B, S), float("nan"))
     yp = torch.full((B, T, F), float("nan"))
     up = torch.full((B, C, T, F), float("nan")) if cfg.postfilter else None
-    lib.gsc_front_scratch_floats.argtypes = [ctypes.c_int] * 4
-    lib.gsc_front_scratch_floats.restype = ctypes.c_longlong
-    n_scratch = lib.gsc_front_scratch_floats(mics, B, Lf, K)
-    scratch = torch.full((n_scratch,), float("nan")) if n_scratch > 0 else None
-    fn = lib.gsc_front_launch
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    params = cf._gsc_front_params(mics)
-    err = fn(x.data_ptr(), x.stride(0), x.stride(1), taps.data_ptr(), cf._tables(2 * Lf, torch.device("cpu")).data_ptr(),
-             cf._notch_table(torch.device("cpu")).data_ptr(), bm.data_ptr(), d.data_ptr(), yp.data_ptr(),
-             up.data_ptr() if up is not None else None, scratch.data_ptr() if scratch is not None else None,
-             B, mics, T, Lf, K, ctypes.addressof(params), None)
+    scratch = _nan(cf._scratch("gsc_front", x.device, mics, B, Lf, K))
+    err = cf._gsc_front_launch(x, taps, cfg, bm, d, yp, up, scratch, None)
     got = (bm, d, yp, up)
-    res = {"err": err, "K": K, "scratch_floats": n_scratch}
+    res = {"err": err, "K": K, "scratch_floats": _floats(scratch)}
     for name, g, w in zip(("bm", "d", "yp", "up"), got, want):
         if w is not None:
             res[name] = _gap(g, w)
     return res
 
 
-def run_mcra(lib, return_sr: bool, F: int, seed: int) -> dict:
+def run_mcra(variant: str, F: int, mics: int, seed: int) -> dict:
     import numpy as np
     import torch
 
     from distantspeech_tpu_torch.noise import mcra as nm
 
     cfg = dataclasses.replace(nm.McraConfig(nfft=2 * (F - 1)), L=3)
-    T, lanes = 20, 3
+    T, lanes, return_sr = 20, 3, variant == "sr"
     rng = np.random.default_rng(seed)
     # noise power with bursts of speech-like power in some frames and bins
     Y = rng.gamma(1.0, 1.0, (T, lanes, F)) * (1.0 + 30.0 * (rng.random((T, lanes, 1)) < 0.4))
     Y = torch.as_tensor(Y, dtype=torch.float32).contiguous()
     Sf = nm._freq_smooth(Y, cfg.b).contiguous()
     outs = [torch.full_like(Y, float("nan")) for _ in range(3)]
-    params = nm.cuda_mcra._mcra_params(cfg)
-    fn = lib.mcra_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    err = fn(Y.data_ptr(), Sf.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-             outs[2].data_ptr() if return_sr else None, T, lanes * F, F, ctypes.addressof(params), None)
+    err = nm.cuda_mcra._launch(cfg, Y, Sf, outs[0], outs[1], outs[2] if return_sr else None, None)
     want = nm.mcra_run_plain(cfg, Y, return_sr=True)
     res = {"err": err, "out": _gap(outs[0], want[0]), "p": float((outs[1] - want[1]).abs().max()),
            "p_moves": float(want[1].max() - want[1].min())}
@@ -615,13 +557,15 @@ def run_mcra(lib, return_sr: bool, F: int, seed: int) -> dict:
     return res
 
 
-def run_wpe(lib, taps: int, frames: int, channels: int, seed: int) -> dict:
+def run_wpe(variant: str, frames: int, channels: int, seed: int) -> dict:
     import numpy as np
     import torch
 
     from distantspeech_tpu_torch.derev import wpe as dw
+    from distantspeech_tpu_torch.ops import _build
     from distantspeech_tpu_torch.ops import cuda_wpe as cw
 
+    taps = int(variant[1:])
     small = channels * taps <= 20
     nb, bands, delay = (3, 16, 2) if small else (1, 4, 3)
     cfg = dw.WpeConfig(num_bands=bands, hop=bands // 4, n_channels=channels, filter_len=taps, delay=delay,
@@ -636,14 +580,8 @@ def run_wpe(lib, taps: int, frames: int, channels: int, seed: int) -> dict:
     D = torch.movedim(torch.movedim(torch.as_tensor(y.astype(np.complex64)), -3, -1), -3, 0)  # [T, NB, F, C], strided
     e = torch.full((frames, nb, F, channels), complex(float("nan"), float("nan")), dtype=torch.complex64)
     shape = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()]
-    lib.wpe_shape.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-    ok = lib.wpe_shape(channels, taps, delay, *(ctypes.byref(v) for v in shape))
-    fn = lib.wpe_launch
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    params = cw._params(cfg)
-    err = fn(D.data_ptr(), *D.stride(), e.data_ptr(), frames, nb, F, channels, taps, delay, ctypes.addressof(params),
-             None)
+    ok = _build.load("wpe").wpe_shape(channels, taps, delay, *(ctypes.byref(v) for v in shape))
+    err = cw._launch(cfg, D, e, None)
     want = dw._recursion(cfg, D)
     group, states, tpt = (v.value for v in shape[:3])
     return {"err": err or ok, "out": _gap(torch.view_as_real(e), torch.view_as_real(want)),
@@ -653,40 +591,17 @@ def run_wpe(lib, taps: int, frames: int, channels: int, seed: int) -> dict:
 
 def main(lib_dir: str, kernels=()) -> None:
     sys.path.insert(0, str(ROOT))
+    from distantspeech_tpu_torch.ops import _build
+
     picks = tuple(kernels or LIBRARIES)  # kernel names, or prefixes of case names
-    res, libs = {}, {}
+    res = {}
     for i, (kernel, variant, size, mics) in enumerate(CASES):
         name = case_name(kernel, variant, size, mics)
         if kernel not in picks and not any(name == pick or name.startswith(f"{pick}-") for pick in picks):
             continue
-        if kernel not in libs:
-            libs[kernel] = ctypes.CDLL(str(Path(lib_dir) / f"lib{LIBRARIES[kernel]}.so"))
-        lib = libs[kernel]
-        if kernel == "k5":
-            g = run_k5(lib, variant, size, mics, seed=i)
-        elif kernel == "k8":
-            g = run_k8(lib, size, mics, seed=i)
-        elif kernel == "k7":
-            g = run_k7(lib, int(variant[2:]), size, mics, seed=i)
-        elif kernel == "k9":
-            g = run_k9(lib, variant, size, seed=i)
-        elif kernel == "k2":
-            g = run_k2(lib, mics, variant, size, seed=i)
-        elif kernel == "k10":
-            g = run_k10(lib, int(variant[1:]), mics, seed=i)
-        elif kernel == "k1":
-            g = run_k1(lib, variant == "gain", size, seed=i)
-        elif kernel == "k6":
-            g = run_k6(lib, variant, size, seed=i)
-        elif kernel == "mcra":
-            g = run_mcra(lib, variant == "sr", size, seed=i)
-        elif kernel == "front":
-            g = run_front(lib, variant, size, mics, seed=i)
-        elif kernel == "wpe":
-            g = run_wpe(lib, int(variant[1:]), size, mics, seed=i)
-        else:
-            g = run_k4(lib, mics, variant, size, seed=i)
-        res[name] = g
+        lib = LIBRARIES[kernel]
+        with _build.swapped(lib, Path(lib_dir) / f"lib{lib}.so"):
+            res[name] = globals()[f"run_{kernel}"](variant, size, mics, seed=i)
     print(json.dumps(res))
 
 
