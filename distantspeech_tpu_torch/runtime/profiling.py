@@ -13,7 +13,8 @@
   point, opened only while a profiler runs;
 - ``count`` / ``counters`` / ``reset_counters``: the program's one registry
   of event counts (``launch.<kernel>`` for each kernel launch,
-  ``host_sync.<site>`` for each blocking host<->device operation).
+  ``host_sync.<site>`` for each blocking host<->device operation,
+  ``cache.<site>.hit`` for each use of a device constant copied earlier).
 """
 
 from __future__ import annotations

@@ -287,7 +287,7 @@ def make_wpe_stream(
     dereverberated reference channel out."""
     from distantspeech_tpu_torch.derev.wpe import WpeConfig, wpe_init, wpe_step
     from distantspeech_tpu_torch.transform.subband import (
-        subband_analysis_stream, subband_synthesis_init, subband_synthesis_step,
+        _prototype_on, subband_analysis_stream, subband_synthesis_init, subband_synthesis_step,
     )
 
     dev = resolve_device(device)
@@ -297,7 +297,7 @@ def make_wpe_stream(
     C = cfg.n_channels
     sb = cfg.subband
     _check_chunk(chunk_size, sb.hop, "hop")
-    h, g = (torch.as_tensor(np.asarray(p, dtype=np.float32), device=dev) for p in sb.prototypes())
+    h, g = (_prototype_on(sb, which, torch.float32, dev) for which in (0, 1))
     J = chunk_size // sb.hop
 
     def step(state, x_chunk):

@@ -17,11 +17,18 @@ them.
 
 Scaling as in the JAX package: synthesis multiplies by ``n_fft`` (the
 reference's ``n_fft * hop`` then ``/ hop``).
+
+The offline transforms take their prototypes from ``_prototype``: each is
+designed or loaded and copied to the device once per (config, analysis or
+synthesis, dtype, device) and then shared by every call, so a call on a
+card makes no copy from the host.  A shared prototype is only ever read:
+nothing here or in a caller may write it in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -63,12 +70,26 @@ class SubbandConfig:
         return nyquist_prototypes(self.n_fft, self.m, self.r)
 
 
-def _prototype(cfg: SubbandConfig, which: int, like: torch.Tensor) -> torch.Tensor:
-    """Prototype ``which`` (0 analysis, 1 synthesis) on ``like``'s device.  On
-    a card it is a blocking copy from the host (``host_sync.subband.prototype``)."""
-    if like.device.type == "cuda":
+@functools.lru_cache(maxsize=None)
+def _prototype_on(cfg: SubbandConfig, which: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Prototype ``which`` built on ``device``: the design or ``.npz`` load
+    and, on a card, one blocking copy from the host
+    (``host_sync.subband.prototype``), once per key."""
+    if device.type == "cuda":
         count("host_sync.subband.prototype")
-    return torch.as_tensor(cfg.prototypes()[which], dtype=like.real.dtype, device=like.device)
+    return torch.as_tensor(cfg.prototypes()[which], dtype=dtype, device=device)
+
+
+def _prototype(cfg: SubbandConfig, which: int, like: torch.Tensor) -> torch.Tensor:
+    """Prototype ``which`` (0 analysis, 1 synthesis) in ``like``'s real dtype
+    on its device.  It is copied there once per (cfg, which, dtype, device)
+    and the same tensor is returned to every later call
+    (``cache.subband.prototype.hit``), so it must never be written in place."""
+    built = _prototype_on.cache_info().misses
+    p = _prototype_on(cfg, which, like.real.dtype, like.device)
+    if _prototype_on.cache_info().misses == built:
+        count("cache.subband.prototype.hit")
+    return p
 
 
 def subband_analysis_frames(x: torch.Tensor, cfg: SubbandConfig, h: torch.Tensor) -> torch.Tensor:

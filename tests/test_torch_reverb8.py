@@ -7,8 +7,9 @@ absence); the reference's Nyquist(M) prototypes against the program's; and
 the call's spans and counters; a CPU tensor takes the frame loop, and the
 kernel's wrapper refuses what lies outside its range before any launch.
 The tests marked ``card`` hold WPE's kernel (``csrc/wpe.cu``) to the float32
-frame loop and to the float64 recursion and count one call's launches and
-blocking copies on the card:
+frame loop and to the float64 recursion, count one call's launches and
+blocking copies, and hold the cell's outputs with the shared subband
+prototypes to those with fresh copies, on the card:
 ``python -m pytest --noconftest tests/test_torch_reverb8.py -m card``."""
 
 import copy
@@ -28,7 +29,9 @@ from distantspeech_tpu_torch.derev.wpe import WpeConfig
 from distantspeech_tpu_torch.doa.srp import SrpConfig
 from distantspeech_tpu_torch.doa.wpe_srp import wpe_analysis, wpe_srp_process
 from distantspeech_tpu_torch.runtime.profiling import counters, reset_counters
+from distantspeech_tpu_torch.transform import subband
 from distantspeech_tpu_torch.transform.filterbank_design import nyquist_prototypes
+from portbench.entries import reverb8_wpe_srp as entry
 from portbench.reference import reverb8_wpe_srp as reference
 from portbench.scenes import reverb_look
 
@@ -86,6 +89,7 @@ def test_a_call_opens_its_spans_and_counts_its_frames():
     cfg, wcfg, geom = _small(M=2)
     x = _scene(cfg, B=1, seconds=0.128)
     T = x.shape[-1] // wcfg.hop
+    subband._prototype_on.cache_clear()
     reset_counters()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for _ in range(2):
@@ -95,7 +99,8 @@ def test_a_call_opens_its_spans_and_counts_its_frames():
         if e.name.startswith("ds."):
             got.setdefault(e.name, []).append(_ds_parent(e))
     assert got == {"ds.wpe_srp_process": [None] * 2, **{s: ["ds.wpe_srp_process"] * 2 for s in STAGES}}
-    assert counters() == {"wpe.frames": 2 * T}  # and no launch.* or host_sync.* from CPU tensors
+    # the second call takes both prototypes from the cache; no launch.* or host_sync.* from CPU tensors
+    assert counters() == {"wpe.frames": 2 * T, "cache.subband.prototype.hit": 2}
 
 
 @pytest.mark.card
@@ -105,21 +110,45 @@ def test_one_call_on_the_card_counts_each_launch_and_each_host_sync():
     cfg, wcfg, geom = _small()
     x = _scene(cfg, B=1, seconds=0.5, device="cuda")
     run = lambda: wpe_srp_process(x, geom, wcfg, SrpConfig(), backend="fused", return_dereverb=True)  # noqa: E731
-    run()  # the first call builds the kernels and copies the steering grid
-    torch.cuda.synchronize()
-    reset_counters()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            run()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
-    assert counters() == {"wpe.frames": x.shape[-1] // wcfg.hop, "launch.wpe_run": 1,
-                          "launch.fused_srp_spectrum": 1, "launch.mcra_run": 1, "host_sync.subband.prototype": 2}
-    assert len(syncs) == 2, [f"{w.filename}:{w.lineno}" for w in syncs]
+    launches = {"wpe.frames": x.shape[-1] // wcfg.hop, "launch.wpe_run": 1, "launch.fused_srp_spectrum": 1,
+                "launch.mcra_run": 1}
+
+    def counted_call():
+        torch.cuda.synchronize()
+        reset_counters()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return [f"{w.filename}:{w.lineno}" for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+
+    run()  # the first call builds the kernels and copies the steering grid and the subband prototypes
+    syncs = counted_call()  # both prototypes from the cache: nothing waits for the card
+    assert counters() == {**launches, "cache.subband.prototype.hit": 2} and syncs == [], syncs
+    subband._prototype_on.cache_clear()  # fresh keys: each prototype's one copy from the host
+    syncs = counted_call()
+    assert counters() == {**launches, "host_sync.subband.prototype": 2} and len(syncs) == 2, syncs
+
+
+@pytest.mark.card
+def test_the_cells_outputs_with_shared_prototypes_are_those_with_fresh_copies(monkeypatch):
+    """The cell's call (its batch and utterances, through the benchmark's
+    entry) with the shared prototypes and with prototypes copied afresh on
+    every call: the same kernels on the same numbers, equal to the bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    call = entry.load(CONFIG, "cuda")
+    x = _scene(CONFIG, B=TRAFFIC["batch"], seconds=TRAFFIC["utterance_s"], seed=2**31 + 21, device="cuda")
+    call({"x": x})  # fills the cache
+    shared = call({"x": x})
+    monkeypatch.setattr(subband, "_prototype", lambda cfg, which, like: torch.as_tensor(
+        cfg.prototypes()[which], dtype=like.real.dtype, device=like.device))
+    fresh = call({"x": x})
+    assert shared.keys() == fresh.keys() and all(torch.equal(shared[k], fresh[k]) for k in shared)
 
 
 def _cell_wpe():

@@ -108,6 +108,49 @@ def test_streaming_matches_jax_and_offline():
     _close(torch.cat(ys), tsb.subband_synthesis(Y_off, cfg), CLOSED)
 
 
+def _fresh_prototype(cfg, which, like):
+    """A prototype built and copied afresh, as on every call before the cache."""
+    return torch.as_tensor(cfg.prototypes()[which], dtype=like.real.dtype, device=like.device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_each_prototype_is_built_once_per_key_and_shared(dtype, monkeypatch):
+    """The first use of a (config, analysis or synthesis, dtype, device) key
+    designs or loads the prototype; every later one gets the same tensor,
+    opens no file and counts a hit.  Another config, dtype or prototype is
+    another key."""
+    tsb._prototype_on.cache_clear()
+    loads = []
+    monkeypatch.setattr(tsb, "nyquist_prototypes", lambda *a: loads.append(a) or tfd.nyquist_prototypes(*a))
+    cfg = tsb.SubbandConfig(64, 32)
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal((2, 32 * 10)), dtype=dtype)
+    reset_counters()
+    h, g = tsb._prototype(cfg, 0, x), tsb._prototype(cfg, 1, x)
+    assert len(loads) == 2 and counters() == {}  # no host_sync.* from CPU tensors
+    Y = tsb.subband_analysis(x, cfg)
+    tsb.subband_synthesis(Y, cfg)
+    assert len(loads) == 2 and counters() == {"cache.subband.prototype.hit": 2}
+    assert tsb._prototype(cfg, 0, x) is h and tsb._prototype(cfg, 1, Y) is g  # Y's real dtype is x's
+    assert h.dtype == g.dtype == dtype
+    other = torch.float64 if dtype == torch.float32 else torch.float32
+    for key in ((cfg, 0, x.to(other)), (tsb.SubbandConfig(64, 16), 0, x), (tsb.SubbandConfig(64, 32, m=1), 1, x)):
+        assert tsb._prototype(*key) is not tsb._prototype(cfg, key[1], x)
+    assert tsb._prototype(cfg, 0, x.to(other)).dtype == other and len(loads) == 5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_fft,hop", CONFIGS)
+def test_shared_prototypes_give_the_fresh_prototypes_outputs(n_fft, hop, dtype, monkeypatch):
+    cfg = tsb.SubbandConfig(n_fft, hop)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal((2, 3, hop * 20)), dtype=dtype)
+    got = [(Y := tsb.subband_analysis(x, cfg), tsb.subband_synthesis(Y, cfg)) for _ in range(2)]  # the 2nd shared
+    monkeypatch.setattr(tsb, "_prototype", _fresh_prototype)
+    Y = tsb.subband_analysis(x, cfg)
+    want = (Y, tsb.subband_synthesis(Y, cfg))
+    for pair in got:
+        assert all(torch.equal(a, b) for a, b in zip(pair, want))
+
+
 def _wpe_cfgs(**kw):
     kw = {"num_bands": 64, "hop": 16, "n_channels": 2, "filter_len": 2, "delay": 2, **kw}
     return convert.wpe_config_from_dict(kw), jwpe.WpeConfig(**kw)
